@@ -6,33 +6,51 @@
 Phases, one line each (a failure anywhere exits non-zero):
   1. the card's name and power limit; builds every CUDA kernel from
      ``nnuzoo_tpu_torch/csrc`` (one nvcc per source, in parallel);
-  2. the selective-scan kernel against its plain PyTorch version at every
-     scan shape of the main path, with error, times and bound;
-  3. one SS2D and one MU at stage-1 width and 256x224, kernel path against
-     plain path;
-  4. end to end: M2NetP at full width and depth (7, 6, 5, 4), seeded weights,
-     through ``Predictor.predict_single_npy_array`` (2d plans, patch
+  2. the selective-scan forward kernel against its plain PyTorch version at
+     every scan shape of the main paths (batch 4 as serving runs it, batch 12
+     as training does), and the backward kernel against its plain version
+     at batch 12, with errors, times and bounds;
+  3. one SS2D (forward, and backward for the input and every parameter) and
+     one MU at stage-1 width and 256x224, kernel path against plain path;
+  4. serving end to end: M2NetP at full width and depth (7, 6, 5, 4), seeded
+     weights, through ``Predictor.predict_single_npy_array`` (2d plans, patch
      256x224, mirror TTA, tile batch 4) on a seeded 1x4x224x256 volume; the
      scan launches of that run, seconds per volume, and one tile batch's
      logits from the kernel path and the fp32 plain path, each against the
      plain path in fp64;
-  5. one JSON line ``{"kernels": [...]}``;
-  6. last line ``{"ok": true, "device": {...}}``.
-``--profile`` adds a torch.profiler table of one tile batch under
-``chiprun_out/``. fp32 throughout (but for the fp64 reference of phase 4),
-TF32 off for matmuls and convolutions.
+  5. training end to end: a seeded preprocessed 2d dataset is written to a
+     temporary folder and ``Trainer(...).run_training()`` of
+     ``nnUNetTrainerM2NetP`` (full depth, patch 256x224, batch 12) takes one
+     epoch of 4 steps and 1 validation step; the losses, seconds per step,
+     scan launches per step and peak memory;
+  6. one training step's loss and gradients, kernel path and fp32 plain path
+     from the same weights and batch, each against the plain path in fp64,
+     at full depth and at stage layers (1, 1, 1, 1);
+  7. the checkpoint of phase 5 loaded through
+     ``Predictor.initialize_from_trained_model_folder`` predicts a volume;
+  8. one JSON line ``{"kernels": [...]}``;
+  9. last line ``{"ok": true, "device": {...}}``.
+``--profile`` adds torch.profiler tables of one tile batch and of one
+training step under ``chiprun_out/``. fp32 throughout (but for the fp64
+references of phases 4 and 6), TF32 off for matmuls and convolutions.
 """
 
 import copy
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PATCH = (256, 224)
 TILE_BATCH = 4
+TRAIN_BATCH = 12
+TRAIN_STEPS = 4
 KD, N_STATE, K_DIRS = 128, 16, 4
 # (L, scan calls with that L in one forward of M2NetP at 256x224)
 PATH_SHAPES = [(57344, 4), (14336, 8), (3584, 12), (896, 16), (224, 16), (56, 24)]
@@ -53,6 +71,38 @@ TILE_MAX_TOL = 0.1       # max abs error / range of the fp64 logits
 TILE_MEAN_TOL = 1e-3     # mean abs error / range
 AGREE_MIN = 0.99         # argmax agreement with the fp64 logits
 KERNEL_MEAN_RATIO = 1.5  # kernel path's mean abs error / the fp32 plain path's
+# backward scan kernel vs its plain version, fp32: max abs error of each
+# gradient (du, ddelta, dbc, dA) / that gradient's max magnitude
+SCAN_BWD_TOL = 1e-4
+# one SS2D, gradients of the input and of every parameter, kernel path vs
+# autograd through the plain scan, fp32: max abs error / that gradient's max.
+# Parameter gradients are sums over 2 x 57344 positions taken in another order.
+SS2D_GRAD_TOL = 1e-3
+STEP_BATCH = 4           # batch of the one-step comparison (fp64 must fit too)
+# one training step of M2NetP with random weights: the loss and every
+# parameter's gradient from each fp32 path (kernel, plain) against the plain
+# path in fp64. Keys: |loss - fp64 loss| / |fp64 loss|; the norm of the whole
+# gradient's error over the norm of the fp64 gradient; the median over the
+# parameters of max abs error / max magnitude.
+# At full depth, as with the logits above, fp32 rounding grows through the
+# net's depth whichever scan runs, and more so backwards: on an H100 the loss
+# reads 6e-7 to 7e-5 off in both fp32 paths, the gradient's error 0.14-0.40
+# of its norm on the kernel path and 0.19-1.17 on the fp32 plain path over
+# four runs (the weights after 4 steps differ from run to run), the median
+# parameter 0.15-0.37 and 0.18-0.45. The limits sit about 2x outside the
+# most that the fp32 plain path read. In that regime either fp32 path may
+# land nearer to fp64: the kernel path's error norm read 0.35x to 1.39x the
+# plain path's over four runs, and is held to 3x.
+STEP_LIMITS = {"loss_rel_err": 2e-4, "grad_rel_err_norm": 2.5,
+               "median_param_rel_err": 1.0, "kernel_over_plain": 3.0}
+# at stage layers (1, 1, 1, 1), same widths, fp32 is well conditioned
+# (an H100 reads 2e-7, 3.7e-3 and 3.4e-3 on the kernel path, 3e-8, 2.8e-3 and
+# 3.2e-3 on the fp32 plain path, the kernel path's error norm 1.29x the
+# plain path's)
+SHALLOW_STEP_LIMITS = {"loss_rel_err": 2e-6, "grad_rel_err_norm": 1e-2,
+                       "median_param_rel_err": 1e-2, "kernel_over_plain": 2.0}
+STEP_LIVE_GRAD = 1e-6    # a parameter counts if its fp64 gradient reaches this
+                         # share of the largest gradient entry
 
 
 def emit(phase, **fields):
@@ -64,6 +114,30 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log):
+    """Per kernel of one source's compiler output: registers, static shared
+    memory and spill bytes, as ``ptxas -v`` states them."""
+    import re
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            found = re.search(r"\d+([a-z_]+kernel)", m.group(1))
+            name = found.group(1) if found else m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(dict(kernel=name, registers=int(m.group(1)),
+                            smem_bytes=int(smem.group(1)) if smem else 0,
+                            spill_store_bytes=spills[0],
+                            spill_load_bytes=spills[1]))
+            name = None
+    return out
 
 
 def time_ms(fn, reps, warmup=2):
@@ -80,7 +154,7 @@ def time_ms(fn, reps, warmup=2):
 
 
 def scan_bound(batch, L, kd, n, k):
-    """Least time for one scan: each input read once, y written once
+    """Least time for one forward scan: each input read once, y written once
     (u, delta, y of (B, L, KD) and bc of (B, L, K*2N), fp32), against ~7
     fp32 operations per state (exp, 2 mul + 1 fma for the state, 1 fma for y)."""
     nbytes = 4 * (3 * batch * L * kd + batch * L * k * 2 * n)
@@ -89,9 +163,21 @@ def scan_bound(batch, L, kd, n, k):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def scan_bwd_bound(batch, L, kd, n, k):
+    """Least time for one backward scan: u, delta, dy and bc read once, du,
+    ddelta and dbc written once (A and dA are (N, KD)), against ~14 fp32
+    operations per state (the state again: exp, 2 mul, fma; the adjoint: fma,
+    mul; and one multiply or fma each for g*h*dA, its sums into ddelta and
+    dA, g*B, dB and dC, not counting the sums over channels)."""
+    nbytes = 4 * (5 * batch * L * kd + 2 * batch * L * k * 2 * n + 2 * n * kd)
+    ops = 14 * batch * L * kd * n
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def scan_inputs(batch, L, kd, n, k, seed):
     """Seeded inputs in the model's regime: delta in [0.001, 0.1] (the dt
-    initialisation), A = -(1..N) (S4D real), unit-normal u and B/C."""
+    initialisation), A = -(1..N) (S4D real), unit-normal u, B/C and dy."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     u = torch.randn(batch, L, kd, device="cuda", generator=g)
@@ -99,35 +185,68 @@ def scan_inputs(batch, L, kd, n, k, seed):
     A_t = -torch.arange(1, n + 1, device="cuda", dtype=torch.float32)[:, None]
     A_t = A_t.expand(n, kd).contiguous()
     bc = torch.randn(batch, L, k * 2 * n, device="cuda", generator=g)
-    return u, delta, A_t, bc
+    dy = torch.randn(batch, L, kd, device="cuda", generator=g)
+    return (u, delta, A_t, bc), dy
 
 
-def phase_scan_kernel():
+def phase_scan_kernels():
+    """Forward kernel at the serving and the training batch, backward kernel
+    at the training batch: error against the plain version, times, bound."""
     import torch
-    from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_plain
-    cases = [(TILE_BATCH, L, KD, N_STATE, K_DIRS) for L, _ in PATH_SHAPES]
-    cases += [(TILE_BATCH, 12, KD, N_STATE, K_DIRS),
-              (TILE_BATCH, 56, 1024, N_STATE, K_DIRS)]
-    rows = []
-    for i, (b, L, kd, n, k) in enumerate(cases):
-        args = scan_inputs(b, L, kd, n, k, seed=i)
-        with torch.inference_mode():
-            y = scan_core(*args)
-            want = scan_core_plain(*args)
-            torch.cuda.synchronize()
-            err = (y - want).abs().max().item()
-            scale = want.abs().max().item()
-            ms = time_ms(lambda: scan_core(*args), reps=20)
-            plain_ms = time_ms(lambda: scan_core_plain(*args), reps=3, warmup=1)
-        bound_ms, bound_by = scan_bound(b, L, kd, n, k)
-        row = dict(B=b, L=L, KD=kd, N=n, max_abs_err=err, rel_err=err / scale,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        emit("scan_kernel", **row)
-        if not err <= SCAN_TOL * scale:
-            raise AssertionError(f"scan kernel disagrees at L={L} KD={kd}: "
-                                 f"{err} > {SCAN_TOL} * {scale}")
-        rows.append(row)
-    return rows
+    from nnuzoo_tpu_torch.ops.selective_scan import (
+        scan_core, scan_core_bwd, scan_core_bwd_plain, scan_core_plain)
+    shapes = [(L, KD) for L, _ in PATH_SHAPES] + [(12, KD), (56, 1024)]
+    fwd_rows, bwd_rows = [], []
+    for i, (L, kd) in enumerate(shapes):
+        for b in (TILE_BATCH, TRAIN_BATCH):
+            args, dy = scan_inputs(b, L, kd, N_STATE, K_DIRS, seed=i)
+            with torch.inference_mode():
+                y, carries = scan_core(*args, return_carries=True)
+                want = scan_core_plain(*args)
+                torch.cuda.synchronize()
+                err = (y - want).abs().max().item()
+                scale = want.abs().max().item()
+                ms = time_ms(lambda: scan_core(*args), reps=20)
+                plain_ms = time_ms(lambda: scan_core_plain(*args), reps=2, warmup=1)
+            bound_ms, bound_by = scan_bound(b, L, kd, N_STATE, K_DIRS)
+            row = dict(B=b, L=L, KD=kd, N=N_STATE, max_abs_err=err,
+                       rel_err=err / scale, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            emit("scan_kernel", **row)
+            if not err <= SCAN_TOL * scale:
+                raise AssertionError(f"scan kernel disagrees at B={b} L={L} "
+                                     f"KD={kd}: {err} > {SCAN_TOL} * {scale}")
+            fwd_rows.append(row)
+            if b != TRAIN_BATCH:
+                continue
+            # the forward's carries, as the autograd function hands them over
+            carries = carries if carries.shape[1] > 1 else None
+            with torch.inference_mode():
+                got = scan_core_bwd(*args, dy, carries)
+                want = scan_core_bwd_plain(*args, dy)
+                torch.cuda.synchronize()
+                errs = {name: ((g - w).abs().max().item(), w.abs().max().item())
+                        for name, g, w in zip(("du", "ddelta", "dbc", "dA"),
+                                              got, want)}
+                ms = time_ms(lambda: scan_core_bwd(*args, dy, carries), reps=10)
+                plain_ms = time_ms(lambda: scan_core_bwd_plain(*args, dy),
+                                   reps=1, warmup=1)
+            del got, want
+            bound_ms, bound_by = scan_bwd_bound(b, L, kd, N_STATE, K_DIRS)
+            row = dict(B=b, L=L, KD=kd, N=N_STATE,
+                       max_abs_err=max(e for e, _ in errs.values()),
+                       rel_err={k: e / m for k, (e, m) in errs.items()},
+                       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            emit("scan_bwd_kernel", **row)
+            for name, (e, m) in errs.items():
+                if not e <= SCAN_BWD_TOL * m:
+                    raise AssertionError(
+                        f"backward scan kernel disagrees at L={L} KD={kd}, "
+                        f"{name}: {e} > {SCAN_BWD_TOL} * {m}")
+            bwd_rows.append(row)
+        torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
 
 
 def compare(a, b):
@@ -157,6 +276,28 @@ def phase_blocks():
               else c["max_abs"] <= MU_TOL * c["range_ref"])
         if not ok:
             raise AssertionError(f"{name}: kernel path vs plain path {c}")
+        if name != "SS2D":
+            continue
+        # forward and backward: the gradients of the input and of every
+        # parameter, both scan kernels against autograd through the plain scan
+        # (which keeps every level of the plain scan: batch 2 of the 4)
+        x = x[:2].clone().requires_grad_()
+        dout = torch.randn(2, *PATCH, ch, device="cuda", generator=g)
+        names = ["input"] + [n for n, _ in module.named_parameters()]
+        leaves = [x] + list(module.parameters())
+        grads = {}
+        for backend in (None, "plain"):
+            set_scan_backend(module, backend)
+            grads[backend] = torch.autograd.grad(module(x), leaves, dout)
+            torch.cuda.synchronize()
+        rel = {n: ((a - b).abs().max() / b.abs().max()).item()
+               for n, a, b in zip(names, grads[None], grads["plain"])}
+        emit("block_grads", block=name, shape=list(x.shape), rel_err=rel)
+        bad = {n: e for n, e in rel.items() if not e <= SS2D_GRAD_TOL}
+        if bad:
+            raise AssertionError(f"SS2D gradients, kernel path vs plain path: {bad}")
+        del grads
+        torch.cuda.empty_cache()
 
 
 def plans_and_dataset():
@@ -167,6 +308,7 @@ def plans_and_dataset():
         "foreground_intensity_properties_per_channel": {},
         "configurations": {"2d": {
             "data_identifier": "nnUNetPlans_2d", "batch_size": 12,
+            "batch_dice": True,
             "patch_size": list(PATCH), "spacing": [1.0, 1.0],
             "normalization_schemes": ["ZScoreNormalization"],
             "use_mask_for_norm": [False],
@@ -304,6 +446,313 @@ def profile_tile_batch(predictor, tiles):
          table="chiprun_out/profile_tile_batch.txt")
 
 
+def write_dataset(folder, cases=3, shape=(8, 280, 320), seed=0):
+    """A seeded preprocessed 2d dataset in the format ``DatasetNumpy`` reads:
+    per case ``.npz`` {data (1, z, y, x) float32, seg (1, z, y, x) int16 with
+    labels 0..2} and ``.pkl`` properties with ``class_locations``. The labels
+    are smooth blobs that the intensities follow, so there is something to
+    learn."""
+    import numpy as np
+    os.makedirs(folder)
+    rs = np.random.RandomState(seed)
+    for i in range(cases):
+        coarse = rs.rand(shape[0], shape[1] // 40, shape[2] // 40)
+        field = np.kron(coarse, np.ones((1, 40, 40)))
+        seg = np.digitize(field, [0.6, 0.85]).astype(np.int16)[None]
+        data = (seg + 0.5 * rs.randn(1, *shape)).astype(np.float32)
+        locations = {}
+        for label in (1, 2):
+            where = np.argwhere(seg == label)
+            locations[label] = where[rs.choice(len(where), min(len(where), 10000),
+                                               replace=False)]
+        np.savez_compressed(os.path.join(folder, f"case_{i:03d}.npz"),
+                            data=data, seg=seg)
+        with open(os.path.join(folder, f"case_{i:03d}.pkl"), "wb") as f:
+            pickle.dump({"class_locations": locations,
+                         "spacing": [3.0, 1.0, 1.0]}, f)
+
+
+def phase_training(profile):
+    """``Trainer.run_training()`` for one epoch of TRAIN_STEPS steps and one
+    validation step. Returns the trainer, one sampled batch, the scan
+    launches (forward, backward) of the run and the weights it ended with."""
+    import numpy as np
+    import torch
+    from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
+    from nnuzoo_tpu_torch.training.trainer import Trainer
+
+    plans, dataset_json = plans_and_dataset()
+    write_dataset(os.path.join(os.environ["nnUNet_preprocessed"],
+                               plans["dataset_name"], "nnUNetPlans_2d"))
+    trainer = Trainer(plans, "2d", "all", dataset_json, num_epochs=1,
+                      trainer_name="nnUNetTrainerM2NetP", device="cuda", seed=0)
+    trainer.config = replace(trainer.config, num_iterations_per_epoch=TRAIN_STEPS,
+                             num_val_iterations_per_epoch=1)
+    trainer.initialize()        # builds the model and probes its output scales
+
+    # observe the steps that run_training takes: time, loss and launches of each
+    steps, batches = [], []
+    inner = trainer.train_step
+
+    def observed_step(data, seg):
+        batches.append((data, seg))
+        torch.cuda.synchronize()
+        before = scan_core.launches, scan_core_bwd.launches
+        t0 = time.perf_counter()
+        loss = inner(data, seg)
+        torch.cuda.synchronize()
+        steps.append(dict(seconds=time.perf_counter() - t0, loss=loss.item(),
+                          fwd_launches=scan_core.launches - before[0],
+                          bwd_launches=scan_core_bwd.launches - before[1]))
+        return loss
+
+    trainer.train_step = observed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scan_core.launches = scan_core_bwd.launches = 0
+    t0 = time.perf_counter()
+    trainer.run_training()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = scan_core.launches, scan_core_bwd.launches
+    trainer.train_step = inner
+    peak = torch.cuda.max_memory_allocated()
+    trained = {k: v.detach().cpu().clone()
+               for k, v in trainer.model.state_dict().items()}
+
+    losses = [s["loss"] for s in steps]
+    log = trainer.logger.my_fantastic_logging
+    emit("training", steps=steps, losses=losses,
+         loss_fell=losses[-1] < losses[0],
+         seconds_per_step_after_first=float(np.mean([s["seconds"]
+                                                     for s in steps[1:]])),
+         run_training_seconds=seconds, val_loss=log["val_losses"][0],
+         pseudo_dice=log["dice_per_class_or_region"][0],
+         fwd_launches=launches[0], bwd_launches=launches[1],
+         peak_memory_bytes=peak, batch=list(batches[0][0].shape),
+         remat=trainer.model.remat,
+         ds_scales=[list(s) for s in trainer.train_aug_cfg.deep_supervision_scales])
+    if len(steps) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
+            not np.isfinite(log["val_losses"][0]):
+        raise AssertionError(f"training losses {losses}, val {log['val_losses']}")
+    if tuple(batches[0][0].shape[:2]) != (TRAIN_BATCH, 1):
+        raise AssertionError(f"batch shape {batches[0][0].shape}")
+    for s in steps:
+        if s["bwd_launches"] != SCANS_PER_FORWARD or \
+                s["fwd_launches"] < SCANS_PER_FORWARD:
+            raise AssertionError(f"scan launches of a step: {s}")
+    # the validation step is one more forward
+    if launches[1] != TRAIN_STEPS * SCANS_PER_FORWARD or \
+            launches[0] < (TRAIN_STEPS + 1) * SCANS_PER_FORWARD:
+        raise AssertionError(f"scan launches of the run: {launches}")
+    for name in ("checkpoint_final.pth", "checkpoint_best.pth"):
+        if not os.path.isfile(os.path.join(trainer.output_folder, name)):
+            raise AssertionError(f"{name} was not written")
+    if profile:
+        profile_train_step(trainer, *batches[-1])
+    return trainer, batches[-1], launches, trained
+
+
+def profile_train_step(trainer, data, seg):
+    """Device time by kernel for one training step, the share of the
+    unprofiled step time the device is busy, and the step with ``remat``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        trainer.train_step(data, seg)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 2 * 1e3
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(data, seg)
+        torch.cuda.synchronize()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    events = prof.key_averages()
+    (out_dir / "profile_train_step.txt").write_text(
+        events.table(sort_by="self_cuda_time_total", row_limit=40))
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def share(*names):
+        return sum(e.self_device_time_total for e in kernels
+                   if any(n in e.key for n in names)) / 1e3
+    fwd = share("scan_chunk_kernel", "chunk_carry_kernel")
+    bwd = share("adjoint_chunk_kernel", "adjoint_carry_kernel", "grad_chunk_kernel")
+    # the same step with M2NetP's remat off and on: time, peak memory, launches
+    from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
+    remat_readings = {}
+    for remat in (False, True):
+        trainer.model.remat = remat
+        trainer.train_step(data, seg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        scan_core.launches = scan_core_bwd.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(2):
+            trainer.train_step(data, seg)
+        torch.cuda.synchronize()
+        remat_readings["remat_on" if remat else "remat_off"] = dict(
+            seconds_per_step=(time.perf_counter() - t0) / 2,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            fwd_launches_per_step=scan_core.launches / 2,
+            bwd_launches_per_step=scan_core_bwd.launches / 2)
+    trainer.model.remat = False
+    emit("profile_train_step", step_wall_ms=wall_ms, device_ms=total,
+         **remat_readings,
+         scan_fwd_kernel_ms=fwd, scan_bwd_kernel_ms=bwd,
+         scan_share=(fwd + bwd) / total if total else None,
+         device_busy_share=total / wall_ms, launches=sum(e.count for e in kernels),
+         table="chiprun_out/profile_train_step.txt")
+
+
+def step_readings(trainer, model, data_aug, targets):
+    """Loss and gradients of one training step of ``model`` (DropPath off)
+    through the kernel path and the fp32 plain path, each held against the
+    plain path in fp64. Returns the readings by path name and the fp64 loss
+    and gradient norm."""
+    import torch
+    from nnuzoo_tpu_torch.models.layers import DropPath
+    from nnuzoo_tpu_torch.models.ss2d import set_scan_backend
+
+    rates = {m: m.rate for m in model.modules() if isinstance(m, DropPath)}
+    for m in rates:
+        m.rate = 0.0
+
+    def loss_and_grads(net, cast):
+        net.train()
+        outputs = net(cast(data_aug).movedim(1, -1).contiguous())
+        loss = trainer._compute_loss(outputs, targets)
+        grads = torch.autograd.grad(loss, list(net.parameters()))
+        torch.cuda.synchronize()
+        return loss.item(), [g.double() for g in grads]
+
+    runs = {}
+    try:
+        for name, backend in (("kernel", None), ("plain_fp32", "plain_pair")):
+            set_scan_backend(model, backend)
+            runs[name] = loss_and_grads(model, lambda t: t)
+        # the fp64 reference: the plain scan pair on a copy of the model in fp64
+        model64 = copy.deepcopy(model).double()
+        set_scan_backend(model64, "plain_pair")
+        want_loss, want = loss_and_grads(model64, lambda t: t.double())
+        del model64
+    finally:
+        set_scan_backend(model, None)
+        for m, rate in rates.items():
+            m.rate = rate
+    torch.cuda.empty_cache()
+
+    want_norm = torch.sqrt(sum((w ** 2).sum() for w in want)).item()
+    want_max = max(w.abs().max().item() for w in want)
+    # a parameter whose true gradient is zero (a bias that a norm takes out
+    # again) has no relative error: such parameters are left out of the
+    # per-parameter statistic
+    live = [i for i, w in enumerate(want)
+            if w.abs().max().item() > STEP_LIVE_GRAD * want_max]
+    readings = {}
+    for name, (loss, grads) in runs.items():
+        err_norm = torch.sqrt(sum(((g - w) ** 2).sum()
+                                  for g, w in zip(grads, want))).item()
+        dot = sum((g * w).sum() for g, w in zip(grads, want)).item()
+        norm = torch.sqrt(sum((g ** 2).sum() for g in grads)).item()
+        per_param = sorted(((grads[i] - want[i]).abs().max()
+                            / want[i].abs().max()).item() for i in live)
+        readings[name] = dict(
+            loss=loss, loss_rel_err=abs(loss - want_loss) / abs(want_loss),
+            grad_norm=norm, grad_err_norm=err_norm,
+            grad_rel_err_norm=err_norm / want_norm,
+            grad_cosine=dot / (norm * want_norm),
+            median_param_rel_err=per_param[len(per_param) // 2],
+            worst_param_rel_err=per_param[-1],
+            finite=all(bool(torch.isfinite(g).all()) for g in grads))
+    return readings, dict(fp64_loss=want_loss, fp64_grad_norm=want_norm,
+                          parameters=len(want), parameters_with_gradient=len(live))
+
+
+def phase_step_agreement(trainer, batch):
+    """One training step's loss and gradients from the same weights and the
+    same batch (the first STEP_BATCH samples, augmented once, DropPath off),
+    kernel path and fp32 plain path against the plain path in fp64: for the
+    trainer's model at full depth, and for M2NetP at the same widths with
+    stage layers (1, 1, 1, 1), where fp32 is well conditioned and the limits
+    are tight."""
+    import torch
+    from nnuzoo_tpu_torch.data.augment import augment_train_batch
+    from nnuzoo_tpu_torch.models.registry import get_model_builder
+
+    data, seg = (t[:STEP_BATCH] for t in batch)
+    with torch.no_grad():
+        data_aug, targets = augment_train_batch(
+            trainer.train_aug_cfg, torch.Generator(device="cuda").manual_seed(7),
+            data, seg)
+    shallow = get_model_builder(trainer.trainer_name)(
+        trainer.plans_manager, trainer.dataset_json, trainer.configuration_manager,
+        trainer.num_input_channels, True, device="cuda", seed=1,
+        stage_layers=(1, 1, 1, 1))
+    for depth, model, limits in (
+            ("stage_layers_1_1_1_1", shallow, SHALLOW_STEP_LIMITS),
+            ("full_depth", trainer.model, STEP_LIMITS)):
+        readings, reference = step_readings(trainer, model, data_aug, targets)
+        emit("step_agreement", depth=depth, batch=STEP_BATCH, **reference,
+             **readings)
+        for name, r in readings.items():
+            if not (r["finite"] and all(r[key] <= limit for key, limit in
+                                        limits.items() if key in r)):
+                raise AssertionError(f"training step at {depth}, {name} vs fp64: "
+                                     f"{r} against {limits}")
+        if not (readings["kernel"]["grad_err_norm"] <= limits["kernel_over_plain"]
+                * readings["plain_fp32"]["grad_err_norm"]):
+            raise AssertionError(f"training step at {depth}: the kernel path's "
+                                 f"gradients are further from fp64 than the fp32 "
+                                 f"plain path's: {readings}")
+    del shallow
+
+
+def phase_train_save_predict(trainer, trained):
+    """The checkpoint that the training run wrote, loaded from its folder,
+    holds the weights ``trained`` that the run ended with and predicts a
+    volume through the serving path."""
+    import numpy as np
+    import torch
+    from nnuzoo_tpu_torch.inference.predictor import Predictor
+    predictor = Predictor(tile_step_size=0.5, use_gaussian=True, use_mirroring=True,
+                          tile_batch_size=TILE_BATCH, device="cuda")
+    predictor.initialize_from_trained_model_folder(trainer.output_folder_base,
+                                                   use_folds=["all"])
+    loaded = predictor.list_of_parameters[0]
+    same = set(loaded) == set(trained) and all(
+        torch.equal(loaded[k], v) for k, v in trained.items())
+    volume = (100 * np.random.RandomState(1).rand(1, 2, 224, 256)).astype(np.float32)
+    seg = predictor.predict_single_npy_array(volume, {"spacing": [3.0, 1.0, 1.0]})
+    labels = sorted(int(v) for v in np.unique(seg))
+    emit("train_save_predict", trainer=predictor.trainer_name,
+         weights_are_the_trained_ones=same, segmentation_shape=list(seg.shape),
+         labels=labels, mirroring_axes=list(predictor.allowed_mirroring_axes))
+    if not same or seg.shape != volume.shape[1:] or not set(labels) <= {0, 1, 2}:
+        raise AssertionError(f"prediction from the trained checkpoint: same={same} "
+                             f"{seg.shape} {labels}")
+
+
+def kernel_entry(name, source, replaces, launches, rows, weight, per, **more):
+    """One kernel's line: the per-shape rows, and their times weighted by the
+    calls of each shape in one pass of the path."""
+    path = [r for r in rows if r["KD"] == KD and r["L"] in weight
+            and r["B"] == TRAIN_BATCH]
+    sums = {key: sum(weight[r["L"]] * r[key] for r in path)
+            for key in ("ms", "plain_ms", "bound_ms")}
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **sums, "library_ms": None,
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in path)
+            else "operations",
+            "per": per, **more, "shapes": rows}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -314,38 +763,57 @@ def main():
     from nnuzoo_tpu_torch import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    profile = "--profile" in sys.argv[1:]
 
     print(card_line(), flush=True)
     t0 = time.perf_counter()
     built = _build.build_all()
     emit("build", seconds=time.perf_counter() - t0, built=sorted(built),
+         ptxas={name: ptxas_summary(log) for name, log in built.items()},
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    rows = phase_scan_kernel()
+    fwd_rows, bwd_rows = phase_scan_kernels()
     phase_blocks()
-    launches = phase_end_to_end("--profile" in sys.argv[1:])
+    serving_launches = phase_end_to_end(profile)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
+        os.environ["nnUNet_results"] = os.path.join(tmp, "results")
+        trainer, batch, (fwd_launches, bwd_launches), trained = \
+            phase_training(profile)
+        phase_step_agreement(trainer, batch)
+        phase_train_save_predict(trainer, trained)
+        del trainer, batch, trained
 
-    # one forward's scan work: the per-shape numbers weighted by calls
+    # one training step's scan work: the per-shape numbers at the training
+    # batch weighted by the calls of each shape
     weight = dict(PATH_SHAPES)
-    path = [r for r in rows if r["KD"] == KD and r["L"] in weight]
-    per_forward = {key: sum(weight[r["L"]] * r[key] for r in path)
-                   for key in ("ms", "plain_ms", "bound_ms")}
-    kernels = [{
-        "name": "selective_scan_fwd", "route": "cuda",
-        "source": "nnuzoo_tpu_torch/csrc/selective_scan_fwd.cu",
-        "replaces": "nnuzoo_tpu/ops/selective_scan.py:868",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        **per_forward, "library_ms": None,
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in path)
-        else "operations",
-        "per": f"one forward: {SCANS_PER_FORWARD} launches at B={TILE_BATCH}",
-        "shapes": rows,
-    }]
+    per = (f"one training step: {SCANS_PER_FORWARD} launches at B={TRAIN_BATCH}; "
+           f"'launches' counts the training run ({TRAIN_STEPS} steps and one "
+           f"validation step)")
+    serving = [r for r in fwd_rows if r["B"] == TILE_BATCH and r["KD"] == KD
+               and r["L"] in weight]
+    kernels = [
+        kernel_entry("selective_scan_fwd",
+                     "nnuzoo_tpu_torch/csrc/selective_scan_fwd.cu",
+                     "nnuzoo_tpu/ops/selective_scan.py:868", fwd_launches,
+                     fwd_rows, weight, per,
+                     launches_by_path={"serving": serving_launches,
+                                       "training": fwd_launches},
+                     serving_forward_ms=sum(weight[r["L"]] * r["ms"]
+                                            for r in serving)),
+        kernel_entry("selective_scan_bwd",
+                     "nnuzoo_tpu_torch/csrc/selective_scan_bwd.cu",
+                     "nnuzoo_tpu/ops/selective_scan.py:915", bwd_launches,
+                     bwd_rows, weight, per,
+                     launches_by_path={"training": bwd_launches}),
+    ]
+    if serving_launches <= 0 or fwd_launches <= 0 or bwd_launches <= 0:
+        raise AssertionError("a kernel of the main paths was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "nnuzoo_tpu")
-                    or m.startswith(("jax.", "flax.", "nnuzoo_tpu.")))
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flax", "optax", "nnuzoo_tpu"))
     if leaked:
         raise AssertionError(f"JAX-side modules imported: {leaked}")
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """nnuzoo_tpu_torch: the PyTorch / CUDA port of ``nnuzoo_tpu`` for NVIDIA Hopper.
 
 The layout mirrors ``nnuzoo_tpu``: ``ops/`` (the selective scan, with its
-hand-written CUDA kernel in ``csrc/``), ``models/``, ``inference/``,
-``plans/``, ``preprocessing/`` and ``utilities/``. ``convert.py`` turns the JAX
-package's parameters into this package's ``state_dict``. The package imports
+hand-written CUDA kernels, forward and backward, in ``csrc/``), ``models/``,
+``training/``, ``data/``, ``run/``, ``inference/``, ``plans/``,
+``preprocessing/`` and ``utilities/``. ``convert.py`` turns the JAX package's
+parameters into this package's ``state_dict`` and back. The package imports
 neither JAX nor ``nnuzoo_tpu``.
 """
 

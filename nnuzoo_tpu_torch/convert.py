@@ -1,4 +1,4 @@
-"""JAX package parameters -> this package's ``state_dict``.
+"""JAX package parameters -> this package's ``state_dict``, and back.
 
 The port's submodule names mirror the flax names, so conversion is a walk over
 the flattened flax tree:
@@ -11,6 +11,8 @@ the flattened flax tree:
   ``dt_projs_weight``, ``dt_projs_bias``, ``A_logs``, ``Ds``) passes through.
 
 Any key left over on either side, or any shape that disagrees, raises.
+:func:`params_from_state_dict` is the reverse walk (a 1-d ``weight`` is a
+norm's ``scale``); it also takes a dict of gradients by parameter name.
 """
 
 from collections.abc import Mapping
@@ -68,3 +70,27 @@ def convert_params(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]
     if bad:
         raise ValueError(f"shape mismatches (JAX, torch): {bad[:10]}")
     return converted
+
+
+def params_from_state_dict(state: Mapping) -> dict:
+    """A ``state_dict`` (or any {name: tensor} with its names, such as the
+    gradients) as the JAX package's nested dict of numpy arrays, in flax
+    names and layouts."""
+    tree: dict = {}
+    for key, tensor in state.items():
+        *path, leaf = key.split(".")
+        value = tensor.detach().cpu().numpy()
+        if leaf == "weight":
+            if value.ndim == 1:
+                leaf = "scale"
+            elif value.ndim == 2:
+                leaf, value = "kernel", value.T
+            elif value.ndim == 4:
+                leaf, value = "kernel", value.transpose(2, 3, 1, 0)
+            else:
+                raise ValueError(f"no rule for a {value.ndim}-d weight ({key})")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return tree

@@ -14,13 +14,18 @@ short instead of being padded to ``tile_batch_size``.
 """
 
 import itertools
+import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..models.registry import get_model_builder
+from ..plans.label_handling import determine_num_input_channels
+from ..plans.plans_handler import PlansManager
 from ..preprocessing.preprocessor import DefaultPreprocessor
+from ..utilities.io import isfile, join, load_json, load_pickle
 from .export import convert_predicted_logits_to_segmentation_with_correct_shape
 from .sliding_window import (compute_gaussian, get_sliding_window_slicers,
                              pad_nd_image)
@@ -51,6 +56,62 @@ class Predictor:
         self._loaded_params = None
 
     # ------------------------------------------------------------------ init
+    def initialize_from_trained_model_folder(self, model_training_output_dir: str,
+                                             use_folds=None,
+                                             checkpoint_name: str =
+                                             "checkpoint_final.pth"):
+        """Load a model that this package's ``Trainer`` trained: the folder's
+        ``plans.json`` and ``dataset.json`` and each fold's checkpoint, whose
+        ``network_weights`` is a ``state_dict``. A checkpoint of the JAX
+        package (serialised flax parameters) is not read yet."""
+        if use_folds is None:
+            use_folds = self.auto_detect_available_folds(
+                model_training_output_dir, checkpoint_name)
+        dataset_json = load_json(join(model_training_output_dir, "dataset.json"))
+        plans_manager = PlansManager(
+            load_json(join(model_training_output_dir, "plans.json")))
+
+        if isinstance(use_folds, (int, str)):
+            use_folds = [use_folds]
+        parameters = []
+        trainer_name = configuration_name = mirroring_axes = None
+        for f in use_folds:
+            f = int(f) if f != "all" else f
+            ckpt = load_pickle(join(model_training_output_dir, f"fold_{f}",
+                                    checkpoint_name))
+            if not isinstance(ckpt["network_weights"], dict):
+                raise NotImplementedError(
+                    "this checkpoint holds serialised flax parameters (the JAX "
+                    "package wrote it); nnuzoo_tpu_torch reads its own "
+                    "checkpoints only so far")
+            if trainer_name is None:
+                trainer_name = ckpt["trainer_name"]
+                configuration_name = ckpt["init_args"]["configuration"]
+                mirroring_axes = ckpt.get("inference_allowed_mirroring_axes")
+            parameters.append({k: torch.as_tensor(v)
+                               for k, v in ckpt["network_weights"].items()})
+
+        configuration_manager = plans_manager.get_configuration(configuration_name)
+        num_input_channels = determine_num_input_channels(
+            plans_manager, configuration_manager, dataset_json)
+        model = get_model_builder(trainer_name)(
+            plans_manager, dataset_json, configuration_manager,
+            num_input_channels, deep_supervision=False, device=self.device)
+        self.manual_initialization(model, parameters, plans_manager,
+                                   configuration_manager, dataset_json,
+                                   trainer_name, mirroring_axes)
+
+    @staticmethod
+    def auto_detect_available_folds(model_training_output_dir, checkpoint_name):
+        folds = []
+        for d in sorted(os.listdir(model_training_output_dir)):
+            if d.startswith("fold_") and d != "fold_all" and isfile(
+                    join(model_training_output_dir, d, checkpoint_name)):
+                folds.append(int(d.split("_")[1]))
+        if not folds:
+            raise RuntimeError(f"No usable folds in {model_training_output_dir}")
+        return folds
+
     def manual_initialization(self, model, params_list, plans_manager,
                               configuration_manager, dataset_json,
                               trainer_name, inference_allowed_mirroring_axes):

@@ -62,13 +62,21 @@ def pad_to_match(x: torch.Tensor, target_spatial: Sequence[int]) -> torch.Tensor
 
 class DropPath(nn.Module):
     """Stochastic depth: drops the whole residual branch per sample, in
-    training mode only; the identity in eval mode."""
+    training mode only; the identity in eval mode. The masks come from
+    ``generator``, which must live on the input's device (None: the device's
+    global generator); :func:`set_drop_path_generator` sets one for a model."""
 
     def __init__(self, rate: float = 0.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.rate = float(rate)
         self.generator = generator
+
+    def __deepcopy__(self, memo):
+        # a copy of a model goes on drawing from the same generator
+        twin = DropPath(self.rate, self.generator)
+        twin.training = self.training
+        return twin
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
@@ -77,6 +85,14 @@ class DropPath(nn.Module):
         keep = torch.empty(keep_shape, device=x.device).bernoulli_(
             1.0 - self.rate, generator=self.generator)
         return torch.where(keep.bool(), x / (1.0 - self.rate), 0.0)
+
+
+def set_drop_path_generator(model: nn.Module,
+                            generator: Optional[torch.Generator]) -> None:
+    """Make every DropPath of ``model`` draw from ``generator``."""
+    for module in model.modules():
+        if isinstance(module, DropPath):
+            module.generator = generator
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,

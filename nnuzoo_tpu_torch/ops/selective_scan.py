@@ -12,6 +12,11 @@ Semantics follow the reference recurrence:
 - :func:`scan_core`: the kernel contract. On a CUDA tensor it launches the
   hand-written kernel ``csrc/selective_scan_fwd.cu``; on a CPU tensor it runs
   :func:`scan_core_plain`.
+- :func:`scan_core_bwd`: its gradients. On CUDA tensors it launches
+  ``csrc/selective_scan_bwd.cu``; on CPU tensors it runs
+  :func:`scan_core_bwd_plain`.
+- :func:`scan_core_grad`: the two as one differentiable function (the
+  counterpart of the JAX package's ``_scan_core_pallas`` and its ``defvjp``).
 - :func:`selective_scan_blkd`: the entry SS2D uses, with the shapes of the
   JAX package's function of the same name.
 """
@@ -148,6 +153,68 @@ def selective_scan_chunked(u, delta, A, B, C, D=None, z=None, delta_bias=None,
     return _finalize(y.transpose(1, 2), u32, D, z, dtype_in)
 
 
+def scan_core_bwd_plain(u, delta, A_t, bc, dy, chunk: int = 256):
+    """The backward kernel's plain version: (du, ddelta, dbc, dA_t) of
+    :func:`scan_core` for the output gradient ``dy``, same contract.
+
+    A forward walk over the chunks keeps each chunk's entry state; the chunks
+    are then taken from the right: the states are computed again from the
+    entry state, and the adjoint g_t = C_t dy_t + dA_{t+1} g_{t+1} is the same
+    :func:`_affine_scan` on the flipped chunk, entered by the adjoint of the
+    state that leaves the chunk."""
+    batch, L, KD = u.shape
+    N = A_t.shape[0]
+    K = bc.shape[2] // (2 * N)
+    Dh = KD // K
+    A = A_t.t()                                          # (KD, N)
+    bc5 = bc.reshape(batch, L, K, 2, N)
+
+    def chunk_terms(t0):
+        t1 = min(t0 + chunk, L)
+        d = delta[:, t0:t1, :, None]                     # (B, T, KD, 1)
+        dA = torch.exp(d * A)                            # (B, T, KD, N)
+        dxu = (d * u[:, t0:t1, :, None]).reshape(batch, t1 - t0, K, Dh, 1)
+        Bx = bc5[:, t0:t1, :, None, 0]                   # (B, T, K, 1, N)
+        return t1, d, dA, dxu, Bx
+
+    def chunk_states(h_in, dA, dxu, Bx):
+        a_cum, b_cum = _affine_scan(dA, (dxu * Bx).reshape(dA.shape), dim=1)
+        return a_cum * h_in[:, None] + b_cum
+
+    h = u.new_zeros(batch, KD, N)
+    entries = []
+    for t0 in range(0, L, chunk):
+        entries.append(h)
+        _, _, dA, dxu, Bx = chunk_terms(t0)
+        h = chunk_states(h, dA, dxu, Bx)[:, -1]
+
+    du, ddelta, dbc = torch.empty_like(u), torch.empty_like(u), torch.empty_like(bc)
+    dA_sum = u.new_zeros(KD, N)
+    q = u.new_zeros(batch, KD, N)        # adjoint of the state leaving the chunk
+    for t0, h_in in reversed(list(zip(range(0, L, chunk), entries))):
+        t1, d, dA, dxu, Bx = chunk_terms(t0)
+        T = t1 - t0
+        states = chunk_states(h_in, dA, dxu, Bx)         # (B, T, KD, N)
+        h_prev = torch.cat([h_in[:, None], states[:, :-1]], dim=1)
+        dy_c = dy[:, t0:t1]
+        cdy = (bc5[:, t0:t1, :, None, 1] *
+               dy_c.reshape(batch, T, K, Dh, 1)).reshape(dA.shape)
+        alpha = torch.cat([dA[:, 1:], torch.ones_like(dA[:, :1])], dim=1)
+        a_cum, b_cum = _affine_scan(alpha.flip(1), cdy.flip(1), dim=1)
+        G = (a_cum * q[:, None] + b_cum).flip(1)         # g_t (B, T, KD, N)
+        q = dA[:, 0] * G[:, 0]
+        gh = G * h_prev * dA                             # g_t h_{t-1} dA_t
+        G5 = G.reshape(batch, T, K, Dh, N)
+        GB = (G5 * Bx).sum(-1).reshape(batch, T, KD)
+        ddelta[:, t0:t1] = (gh * A).sum(-1) + GB * u[:, t0:t1]
+        du[:, t0:t1] = GB * delta[:, t0:t1]
+        dB = (G5 * dxu).sum(3)                           # (B, T, K, N)
+        dC = (states * dy_c[..., None]).reshape(batch, T, K, Dh, N).sum(3)
+        dbc[:, t0:t1] = torch.stack([dB, dC], dim=3).reshape(batch, T, -1)
+        dA_sum += (gh * d).sum((0, 1))
+    return du, ddelta, dbc, dA_sum.t().contiguous()
+
+
 # ------------------------------------------------------------------ kernel
 def _pick_chunk(batch: int, L: int, KD: int) -> int:
     nchunks = max(1, min(math.ceil(_TARGET_THREADS / (batch * KD)),
@@ -156,6 +223,7 @@ def _pick_chunk(batch: int, L: int, KD: int) -> int:
 
 
 _fwd_fn = None
+_bwd_fns = None
 
 
 def _kernel_fn():
@@ -168,8 +236,25 @@ def _kernel_fn():
     return _fwd_fn
 
 
-def _check_kernel_inputs(u, delta, A_t, bc):
-    tensors = {"u": u, "delta": delta, "A_t": A_t, "bc": bc}
+def _bwd_kernel_fns():
+    """(the backward's entry, its count of stored states per chunk)."""
+    global _bwd_fns
+    if _bwd_fns is None:
+        lib = _build.load("selective_scan_bwd")
+        fn = lib.nnuzoo_selective_scan_bwd
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        nsub = lib.nnuzoo_selective_scan_bwd_nsub
+        nsub.argtypes = [ctypes.c_int]
+        nsub.restype = ctypes.c_int
+        _bwd_fns = (fn, nsub)
+    return _bwd_fns
+
+
+def _check_kernel_inputs(u, delta, A_t, bc, **more):
+    """Raise on anything the kernels do not take; ``more`` are further
+    (B, L, K*Dh) tensors (the backward's dy). Returns (B, L, K*Dh, K, N)."""
+    tensors = {"u": u, "delta": delta, "A_t": A_t, "bc": bc, **more}
     for name, t in tensors.items():
         if t.device != u.device:
             raise ValueError(f"{name} is on {t.device}, u on {u.device}")
@@ -178,14 +263,13 @@ def _check_kernel_inputs(u, delta, A_t, bc):
         if not t.is_contiguous():
             raise ValueError(f"the scan kernel takes contiguous tensors, {name} "
                              "is not")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
-        raise NotImplementedError(
-            "the CUDA selective scan has no backward kernel yet; it comes with "
-            "the training slice of the port. Run the forward under "
-            "torch.no_grad() or torch.inference_mode()")
     if u.dim() != 3 or delta.shape != u.shape:
         raise ValueError(f"u and delta must be (B, L, K*Dh), got {tuple(u.shape)} "
                          f"and {tuple(delta.shape)}")
+    for name, t in more.items():
+        if t.shape != u.shape:
+            raise ValueError(f"{name} must be {tuple(u.shape)} like u, got "
+                             f"{tuple(t.shape)}")
     batch, L, KD = u.shape
     N = A_t.shape[0]
     if N not in KERNEL_STATE_SIZES:
@@ -205,7 +289,10 @@ def _check_kernel_inputs(u, delta, A_t, bc):
     return batch, L, KD, K, N
 
 
-def _scan_core_cuda(u, delta, A_t, bc, return_carries):
+def _scan_core_cuda(u, delta, A_t, bc):
+    """Launch the forward kernel: (y, carries), carries the state entering
+    each chunk, (B, chunks, N, K*Dh), or None with one chunk (the kernel
+    writes none then: the scan starts from zero)."""
     batch, L, KD, K, N = _check_kernel_inputs(u, delta, A_t, bc)
     chunk = _pick_chunk(batch, L, KD)
     nchunks = math.ceil(L / chunk)
@@ -225,15 +312,12 @@ def _scan_core_cuda(u, delta, A_t, bc, return_carries):
         raise RuntimeError(f"selective_scan_fwd kernel launch failed with CUDA "
                            f"error {rc}")
     scan_core.launches += 1
-    if not return_carries:
-        return y
-    if states is None:
-        states = torch.zeros(batch, 1, N, KD, device=u.device)
     return y, states
 
 
 def scan_core(u, delta, A_t, bc, return_carries: bool = False):
-    """y (B, L, K*Dh) of the kernel contract above.
+    """y (B, L, K*Dh) of the kernel contract above (no gradient: see
+    :func:`scan_core_grad`).
 
     On CUDA tensors this launches ``csrc/selective_scan_fwd.cu`` on the
     current stream and counts the launch in ``scan_core.launches``; it raises
@@ -243,7 +327,13 @@ def scan_core(u, delta, A_t, bc, return_carries: bool = False):
     decides whether they are returned. On CPU tensors it runs
     :func:`scan_core_plain` (which has no carries)."""
     if u.device.type == "cuda":
-        return _scan_core_cuda(u, delta, A_t, bc, return_carries)
+        y, states = _scan_core_cuda(u, delta, A_t, bc)
+        if not return_carries:
+            return y
+        if states is None:
+            states = torch.zeros(u.shape[0], 1, A_t.shape[0], u.shape[2],
+                                 device=u.device)
+        return y, states
     if return_carries:
         raise ValueError("chunk carries come from the CUDA kernel only")
     return scan_core_plain(u, delta, A_t, bc)
@@ -252,15 +342,128 @@ def scan_core(u, delta, A_t, bc, return_carries: bool = False):
 scan_core.launches = 0
 
 
+def _scan_core_bwd_cuda(u, delta, A_t, bc, dy, carries):
+    batch, L, KD, K, N = _check_kernel_inputs(u, delta, A_t, bc, dy=dy)
+    Dh = KD // K
+    if Dh % 32:
+        raise ValueError(f"the backward scan kernel takes Dh a multiple of 32 (a "
+                         f"warp sums one direction's dB and dC), got Dh={Dh}")
+    chunk = _pick_chunk(batch, L, KD)
+    nchunks = math.ceil(L / chunk)
+    if nchunks > 1:
+        if carries is None:
+            carries = scan_core(u, delta, A_t, bc, return_carries=True)[1]
+        if (carries.shape != (batch, nchunks, N, KD) or carries.device != u.device
+                or carries.dtype != torch.float32 or not carries.is_contiguous()):
+            raise ValueError(f"carries must be the forward kernel's, a contiguous "
+                             f"float32 ({batch}, {nchunks}, {N}, {KD}) on "
+                             f"{u.device}, got {tuple(carries.shape)}")
+    fn, nsub = _bwd_kernel_fns()
+    dev = u.device
+    du, ddelta = torch.empty_like(u), torch.empty_like(u)
+    dbc_part = torch.empty(batch, L, KD // 32, 2 * N, device=dev)
+    da_part = torch.empty(batch, nchunks, N, KD, device=dev)
+    ckpt = torch.empty(batch, nchunks, nsub(chunk), N, KD, device=dev)
+    adj = dsum = None
+    if nchunks > 1:
+        adj = torch.empty(batch, nchunks, N, KD, device=dev)
+        dsum = torch.empty(batch, nchunks, KD, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(u.data_ptr(), delta.data_ptr(), A_t.data_ptr(), bc.data_ptr(),
+                dy.data_ptr(), carries.data_ptr() if nchunks > 1 else None,
+                du.data_ptr(), ddelta.data_ptr(), dbc_part.data_ptr(),
+                da_part.data_ptr(), adj.data_ptr() if adj is not None else None,
+                dsum.data_ptr() if dsum is not None else None, ckpt.data_ptr(),
+                batch, L, K, Dh, N, chunk, stream)
+    if rc != 0:
+        raise RuntimeError(f"selective_scan_bwd kernel launch failed with CUDA "
+                           f"error {rc}")
+    scan_core_bwd.launches += 1
+    # the kernel leaves one [dB | dC] sum per warp of 32 channels and one dA
+    # sum per (batch, chunk): the rest of each sum is taken here
+    dbc = dbc_part.reshape(batch, L, K, Dh // 32, 2 * N)
+    dbc = dbc.sum(3) if Dh > 32 else dbc
+    return du, ddelta, dbc.reshape(batch, L, K * 2 * N), da_part.sum((0, 1))
+
+
+def scan_core_bwd(u, delta, A_t, bc, dy, carries=None):
+    """(du, ddelta, dbc, dA_t) of :func:`scan_core` for the output gradient
+    ``dy`` (B, L, K*Dh).
+
+    On CUDA tensors this launches ``csrc/selective_scan_bwd.cu`` on the
+    current stream and counts the launch in ``scan_core_bwd.launches``; it
+    raises on anything the kernel does not take. ``carries`` are the forward
+    kernel's chunk-entry states for the same inputs; without them the forward
+    kernel runs again to make them. On CPU tensors it runs
+    :func:`scan_core_bwd_plain`."""
+    if u.device.type == "cuda":
+        return _scan_core_bwd_cuda(u, delta, A_t, bc, dy, carries)
+    return scan_core_bwd_plain(u, delta, A_t, bc, dy)
+
+
+scan_core_bwd.launches = 0
+
+
+class _ScanCore(torch.autograd.Function):
+    """:func:`scan_core` with :func:`scan_core_bwd` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A_t, bc):
+        if u.device.type == "cuda":
+            y, carries = _scan_core_cuda(u, delta, A_t, bc)
+        else:
+            y, carries = scan_core_plain(u, delta, A_t, bc), None
+        ctx.save_for_backward(u, delta, A_t, bc, carries)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        u, delta, A_t, bc, carries = ctx.saved_tensors
+        du, ddelta, dbc, dA_t = scan_core_bwd(u, delta, A_t, bc,
+                                              dy.contiguous(), carries)
+        return du, ddelta, dA_t, dbc
+
+
+class _ScanCorePlainPair(torch.autograd.Function):
+    """:func:`scan_core_plain` with :func:`scan_core_bwd_plain` as its
+    gradient, on any device and in the inputs' dtype."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A_t, bc):
+        ctx.save_for_backward(u, delta, A_t, bc)
+        return scan_core_plain(u, delta, A_t, bc)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        du, ddelta, dbc, dA_t = scan_core_bwd_plain(*ctx.saved_tensors, dy)
+        return du, ddelta, dA_t, dbc
+
+
+def scan_core_grad(u, delta, A_t, bc):
+    """:func:`scan_core`, differentiable: the forward keeps its inputs and,
+    on the card, the kernel's chunk carries; the backward is
+    :func:`scan_core_bwd`."""
+    return _ScanCore.apply(u, delta, A_t, bc)
+
+
 def selective_scan_blkd(u, delta, A, Bmat, Cmat, D=None, delta_bias=None,
                         delta_softplus=True, backend: Optional[str] = None):
     """Entry for cross-scan modules.
 
     u/delta (B, L, K, Dh); A (K*Dh, N) (row k*Dh+d); Bmat/Cmat (B, L, K, N);
     D/delta_bias (K*Dh,). Returns y (B, L, K, Dh) in fp32 (fp64 for fp64
-    inputs). ``backend`` None goes through :func:`scan_core`; "plain" calls
-    :func:`scan_core_plain` on any device, which is how the kernel path is
-    compared with the plain one, and with an fp64 reference, on the card."""
+    inputs). ``backend`` None goes through :func:`scan_core_grad` (the
+    kernels on the card, forwards and backwards); "plain" calls
+    :func:`scan_core_plain` on any device and leaves its gradient to
+    autograd, which is how the kernel path is compared with the plain one,
+    and with an fp64 reference, on the card. Autograd keeps every level of
+    the plain scan (some 12 KB per scan position in fp32), which a whole
+    training step at full size cannot hold; "plain_pair" is the plain
+    forward with :func:`scan_core_bwd_plain` as its gradient, on any device,
+    and keeps the inputs only."""
     batch, L, K, Dh = u.shape
     dstate = A.shape[1]
     ct = torch.promote_types(u.dtype, torch.float32)
@@ -276,9 +479,11 @@ def selective_scan_blkd(u, delta, A, Bmat, Cmat, D=None, delta_bias=None,
     args = (u32.reshape(batch, L, K * Dh).contiguous(),
             delta32.reshape(batch, L, K * Dh).contiguous(), A_t, bc)
     if backend is None:
-        y = scan_core(*args)
+        y = scan_core_grad(*args)
     elif backend == "plain":
         y = scan_core_plain(*args)
+    elif backend == "plain_pair":
+        y = _ScanCorePlainPair.apply(*args)
     else:
         raise ValueError(f"unknown scan backend {backend!r}")
     y = y.reshape(batch, L, K, Dh)

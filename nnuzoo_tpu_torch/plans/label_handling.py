@@ -176,3 +176,17 @@ class LabelManager:
         out[slicer] = probs
         return out
 
+
+def determine_num_input_channels(plans_manager, configuration_or_config_manager,
+                                 dataset_json: dict) -> int:
+    """Cascade stages get the one-hot foreground labels of the previous stage
+    as extra input channels."""
+    if isinstance(configuration_or_config_manager, str):
+        config_manager = plans_manager.get_configuration(configuration_or_config_manager)
+    else:
+        config_manager = configuration_or_config_manager
+    label_manager = plans_manager.get_label_manager(dataset_json)
+    num_modalities = len(dataset_json.get("modality", dataset_json.get("channel_names")))
+    if config_manager.previous_stage_name is not None:
+        return num_modalities + len(label_manager.foreground_labels)
+    return num_modalities

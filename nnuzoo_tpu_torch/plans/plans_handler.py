@@ -1,5 +1,5 @@
 """Plans / configuration management (copy of
-``nnuzoo_tpu/plans/plans_handler.py``, trimmed to what prediction reads).
+``nnuzoo_tpu/plans/plans_handler.py``, trimmed to what prediction and training read).
 
 JSON schema is kept compatible with the reference
 (`nnunetv2/utilities/plans_handling/plans_handler.py:31-346`): a plans file has
@@ -13,7 +13,7 @@ Resampling-function names in plans resolve through an explicit registry.
 
 from copy import deepcopy
 from functools import partial
-from typing import List, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 from ..utilities.io import load_json
 from .label_handling import LabelManager
@@ -27,6 +27,14 @@ class ConfigurationManager:
 
     def __repr__(self):
         return repr(self.configuration)
+
+    @property
+    def data_identifier(self) -> str:
+        return self.configuration["data_identifier"]
+
+    @property
+    def batch_size(self) -> int:
+        return self.configuration["batch_size"]
 
     @property
     def patch_size(self) -> List[int]:
@@ -60,6 +68,25 @@ class ConfigurationManager:
     @property
     def resampling_fn_probabilities(self):
         return self._resampling_fn("resampling_fn_probabilities")
+
+    @property
+    def pool_op_kernel_sizes(self) -> Tuple[Tuple[int, ...], ...]:
+        return self.configuration["architecture"]["arch_kwargs"]["strides"]
+
+    @property
+    def batch_dice(self) -> bool:
+        return self.configuration["batch_dice"]
+
+    @property
+    def next_stage_names(self) -> Optional[List[str]]:
+        ret = self.configuration.get("next_stage")
+        if ret is not None and isinstance(ret, str):
+            ret = [ret]
+        return ret
+
+    @property
+    def previous_stage_name(self) -> Optional[str]:
+        return self.configuration.get("previous_stage")
 
 
 class PlansManager:
@@ -96,6 +123,14 @@ class PlansManager:
         return self._config_cache[configuration_name]
 
     # ------------------------------------------------------------ dataset-level keys
+    @property
+    def dataset_name(self) -> str:
+        return self.plans["dataset_name"]
+
+    @property
+    def plans_name(self) -> str:
+        return self.plans["plans_name"]
+
     @property
     def transpose_forward(self) -> List[int]:
         return self.plans["transpose_forward"]

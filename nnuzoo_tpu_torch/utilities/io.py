@@ -1,10 +1,39 @@
-"""Small file/JSON helpers (copy of ``nnuzoo_tpu/utilities/io.py``, trimmed to
-what prediction calls)."""
+"""Small file/JSON/pickle helpers (this package's copy of
+``nnuzoo_tpu/utilities/io.py``)."""
 
 import json
+import os
+import pickle
 from typing import Any
 
 
 def load_json(path: str) -> Any:
     with open(path, "r") as f:
         return json.load(f)
+
+
+def save_json(obj: Any, path: str, sort_keys: bool = True, indent: int = 4) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f, sort_keys=sort_keys, indent=indent)
+
+
+def load_pickle(path: str) -> Any:
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def save_pickle(obj: Any, path: str) -> None:
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
+
+
+def maybe_mkdir(path: str) -> None:
+    os.makedirs(path, exist_ok=True)
+
+
+def join(*args: str) -> str:
+    return os.path.join(*args)
+
+
+def isfile(path: str) -> bool:
+    return os.path.isfile(path)

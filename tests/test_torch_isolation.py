@@ -20,9 +20,13 @@ names = [m.name for m in pkgutil.walk_packages(nnuzoo_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "flax", "nnuzoo_tpu")
-             or m.startswith(("jax.", "jaxlib.", "flax.", "nnuzoo_tpu.")))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nnuzoo_tpu"))
 print(len(names), bad)
+for wanted in ("training.trainer", "training.losses", "training.schedulers",
+               "training.trainer_config", "training.logger", "data.augment",
+               "data.dataset", "data.patch_sampler", "data.loader",
+               "run.run_training"):
+    assert "nnuzoo_tpu_torch." + wanted in names, wanted
 """
 
 
@@ -31,7 +35,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 20          # every module was imported
+    assert int(count) >= 35          # every module was imported
     assert bad == "[]", bad
 
 
@@ -58,3 +62,15 @@ def test_default_device_raises_without_cuda(no_cuda):
         resolve_device("cuda:0")
     assert resolve_device("cpu").type == "cpu"
     Predictor(device="cpu")
+
+
+def test_no_source_line_imports_the_jax_side():
+    """No module of the port names ``jax``, ``flax``, ``optax`` or the JAX
+    package in an import statement, not even inside a function."""
+    import re
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|nnuzoo_tpu)(\.|\s|$)")
+    files = list((REPO / "nnuzoo_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 40
+    bad = [(str(f.relative_to(REPO)), line.strip()) for f in files
+           for line in f.read_text().splitlines() if pattern.match(line)]
+    assert bad == []

@@ -1,4 +1,5 @@
-"""The wrapper of the CUDA selective-scan kernel (``scan_core``).
+"""The wrappers of the CUDA selective-scan kernels (``scan_core``,
+``scan_core_bwd`` and the two as one differentiable ``scan_core_grad``).
 
 This file imports no JAX, so its ``cuda`` tests also run on a machine with
 the GPU and no JAX, where the repository's ``conftest.py`` cannot load:
@@ -76,10 +77,11 @@ def test_kernel_wrapper_checks_inputs():
         tscan._check_kernel_inputs(u.transpose(0, 1), d, A_t, bc)
     with pytest.raises(ValueError, match="bc must be"):
         tscan._check_kernel_inputs(u, d, A_t, bc[..., :-1].contiguous())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tscan._check_kernel_inputs(u.requires_grad_(), d, A_t, bc)
-    with torch.no_grad():
-        tscan._check_kernel_inputs(u, d, A_t, bc)
+    # inputs that require a gradient are taken: the backward is a kernel too
+    tscan._check_kernel_inputs(u.clone().requires_grad_(), d, A_t, bc)
+    with pytest.raises(ValueError, match="dy must be"):
+        tscan._check_kernel_inputs(u, d, A_t, bc, dy=u[:, :-1].contiguous())
+    assert tscan._check_kernel_inputs(u, d, A_t, bc, dy=u.clone()) == (2, 20, 8, 2, 16)
 
 
 @pytest.mark.parametrize("L", [57344, 14336, 3584, 896, 224, 56, 12])
@@ -138,3 +140,82 @@ def test_cuda_kernel_carries_are_the_chunk_entry_states(cuda_device):
             err = (carries[:, j] - want).abs().max().item()
             assert err <= 1e-4 * want.abs().max().item(), (j, err)
     assert y.shape == (B, L, KD)
+
+
+def test_scan_core_bwd_cpu_runs_plain_version_and_counts_no_launch():
+    """On CPU tensors the backward wrapper and the differentiable function
+    run the plain pair; their gradients are autograd's through the plain
+    forward (fp32, another association of the same sums: 1e-4 of each
+    gradient's max)."""
+    args = _contract_inputs("cpu", 2, 70, 64, 2, 16, seed=4)
+    dy = torch.randn(2, 70, 64, generator=torch.Generator().manual_seed(5))
+    before = tscan.scan_core_bwd.launches, tscan.scan_core.launches
+    got = tscan.scan_core_bwd(*args, dy)
+    leaves = [a.clone().requires_grad_() for a in args]
+    via_function = torch.autograd.grad(tscan.scan_core_grad(*leaves), leaves, dy)
+    assert (tscan.scan_core_bwd.launches, tscan.scan_core.launches) == before
+    leaves = [a.clone().requires_grad_() for a in args]
+    du, dd, dA, dbc = torch.autograd.grad(tscan.scan_core_plain(*leaves), leaves, dy)
+    for name, g, w in zip(("du", "ddelta", "dbc", "dA"), got, (du, dd, dbc, dA)):
+        assert g.shape == w.shape, name
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item(), name
+    for g, w in zip(via_function, (du, dd, dA, dbc)):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def _grad_errors(got, want):
+    return {name: ((g.double() - w).abs().max().item(), w.abs().max().item())
+            for name, g, w in zip(("du", "ddelta", "dbc", "dA"), got, want)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,KD,K", [
+    (2, 12, 128, 4),        # one chunk, shorter than a sub-chunk
+    (2, 56, 128, 4),        # two chunks of 28
+    (12, 56, 1024, 4),      # Dh=256: eight warps a direction
+    (2, 1000, 96, 3),       # L no multiple of the chunk, KD no multiple of 128
+    (1, 301, 32, 1),        # a ragged last chunk and last sub-chunk
+    (12, 3584, 128, 4),
+])
+def test_cuda_backward_kernel_matches_plain_version(cuda_device, B, L, KD, K):
+    """On the card: the backward kernel against the plain backward in fp64 on
+    the same inputs; fp32 with exp2 against exp and other orders of the sums,
+    so 1e-4 of each gradient's max magnitude."""
+    args = _contract_inputs(cuda_device, B, L, KD, K, 16, seed=L)
+    dy = torch.randn(B, L, KD, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device).manual_seed(L + 1))
+    before = tscan.scan_core_bwd.launches
+    got = tscan.scan_core_bwd(*args, dy)
+    torch.cuda.synchronize()
+    assert tscan.scan_core_bwd.launches == before + 1
+    want = tscan.scan_core_bwd_plain(*(a.double() for a in args), dy.double())
+    for name, (err, scale) in _grad_errors(got, want).items():
+        assert err <= 1e-4 * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_function_runs_both_kernels(cuda_device):
+    """``scan_core_grad`` on the card: one forward and one backward launch,
+    the forward's carries reused, gradients as autograd's through the plain
+    forward (1e-4 of each gradient's max)."""
+    B, L, KD, K = 2, 700, 128, 4
+    args = _contract_inputs(cuda_device, B, L, KD, K, 16, seed=9)
+    dy = torch.randn(B, L, KD, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device).manual_seed(10))
+    before = tscan.scan_core.launches, tscan.scan_core_bwd.launches
+    leaves = [a.clone().requires_grad_() for a in args]
+    got = torch.autograd.grad(tscan.scan_core_grad(*leaves), leaves, dy)
+    torch.cuda.synchronize()
+    assert (tscan.scan_core.launches, tscan.scan_core_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    leaves = [a.double().requires_grad_() for a in args]
+    want = torch.autograd.grad(tscan.scan_core_plain(*leaves), leaves, dy.double())
+    for g, w in zip(got, want):
+        assert (g.double() - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_backward_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    args = _contract_inputs(cuda_device, 1, 40, 48, 3, 16, seed=2)   # Dh = 16
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tscan.scan_core_bwd(*args, torch.zeros_like(args[0]))
