@@ -28,13 +28,27 @@ Phases, one line each (a failure anywhere exits non-zero):
      at full depth and at stage layers (1, 1, 1, 1);
   7. the checkpoint of phase 5 loaded through
      ``Predictor.initialize_from_trained_model_folder`` predicts a volume;
-  8. one JSON line ``{"kernels": [...]}``;
-  9. last line ``{"ok": true, "device": {...}}``.
+  8. the fused cross-scan kernels (K3 forward, K4 backward) against their
+     plain versions at every scan length of the main paths, in both traversal
+     orientations (K3 at batch 4 and 12, K4 at batch 12), at L=12, a ragged
+     L and M2Net's width, with errors, times and bounds;
+  9. one SS2D at stage-1 width with the fused glue against the default
+     glue, forward and every gradient, both on the kernels;
+ 10. serving with the fused glue (``NNUZOO_SS2D_FUSED=1``): phase 4 again,
+     160 K3 launches and no K1 launch per forward;
+ 11. training with the fused glue: phase 5 again, 160 K3 and 160 K4
+     launches and no K1/K2 launch per step, then one step at stage layers
+     (1, 1, 1, 1) against fp64 as in phase 6;
+ 12. one JSON line ``{"kernels": [...]}`` listing K1-K4;
+ 13. last line ``{"ok": true, "device": {...}}``.
+Every line is also written to ``chiprun_out/chip_smoke.jsonl``.
 ``--profile`` adds torch.profiler tables of one tile batch and of one
-training step under ``chiprun_out/``. fp32 throughout (but for the fp64
-references of phases 4 and 6), TF32 off for matmuls and convolutions.
+training step under ``chiprun_out/``, for each glue. fp32 throughout (but
+for the fp64 references of phases 4, 6, 10 and 11), TF32 off for matmuls and
+convolutions.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -55,6 +69,10 @@ KD, N_STATE, K_DIRS = 128, 16, 4
 # (L, scan calls with that L in one forward of M2NetP at 256x224)
 PATH_SHAPES = [(57344, 4), (14336, 8), (3584, 12), (896, 16), (224, 16), (56, 24)]
 SCANS_PER_FORWARD = sum(n for _, n in PATH_SHAPES)
+# the fused glue: G=2 axis orders of Dh=32 channels, dt rank 1; two
+# cross-scan calls (one per orientation) where the default glue makes one scan
+CROSS_G, CROSS_DH, CROSS_R = 2, 32, 1
+FUSED_PER_FORWARD = 2 * SCANS_PER_FORWARD
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -78,6 +96,11 @@ SCAN_BWD_TOL = 1e-4
 # autograd through the plain scan, fp32: max abs error / that gradient's max.
 # Parameter gradients are sums over 2 x 57344 positions taken in another order.
 SS2D_GRAD_TOL = 1e-3
+# fused cross-scan kernels vs their plain versions, fp32: y and d_streams to
+# 1e-4 of their max; the weight gradients, sums over up to 688,128 positions
+# in another order, to 1e-3 of each one's max
+CROSS_TOL = 1e-4
+CROSS_WEIGHT_GRAD_TOL = 1e-3
 STEP_BATCH = 4           # batch of the one-step comparison (fp64 must fit too)
 # one training step of M2NetP with random weights: the loss and every
 # parameter's gradient from each fp32 path (kernel, plain) against the plain
@@ -105,8 +128,19 @@ STEP_LIVE_GRAD = 1e-6    # a parameter counts if its fp64 gradient reaches this
                          # share of the largest gradient entry
 
 
+LOG = ROOT / "chiprun_out" / "chip_smoke.jsonl"
+
+
+def out(line):
+    """Print a line, and keep it in LOG: the per-shape lines are more than
+    the end of the output that a remote run shows."""
+    print(line, flush=True)
+    with open(LOG, "a") as f:
+        f.write(line + "\n")
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    out(json.dumps({"phase": phase, **fields}))
 
 
 def card_line():
@@ -249,6 +283,116 @@ def phase_scan_kernels():
     return fwd_rows, bwd_rows
 
 
+def cross_ops(n, r):
+    """fp32 operations of one cross-scan step of one channel, forward and
+    backward: the projection (2C, x_dbl shared by the Dh channels of a
+    direction), dt_proj (2R), softplus and the D term (~4) and ~7 a state;
+    the backward does the forward again, ~14 a state for the adjoint and its
+    sums, 2C each for the sums of d_xdbl, du's projection term and dwx, 2R
+    for dwdt and ~6 more (ddelta, softplus', du, dD, dbias)."""
+    c = r + 2 * n
+    fwd = 2 * c + 2 * r + 4 + 7 * n
+    return fwd, fwd + 14 * n + 6 * c + 2 * r + 6
+
+
+def cross_bound(batch, L, g, dh, n, r, backward):
+    """Least time for one cross-scan call: the streams (and dy) read once, y
+    (or d_streams) written once, the weights read (and their gradients
+    written) once, against the operations of :func:`cross_ops`."""
+    c = r + 2 * n
+    weights = g * c * dh + g * dh * r + g * dh + g * dh * n + g * dh
+    acts = (3 if backward else 2) * batch * L * g * dh
+    nbytes = 4 * (acts + (2 if backward else 1) * weights)
+    ops = batch * L * g * dh * cross_ops(n, r)[1 if backward else 0]
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def cross_inputs(batch, L, g, dh, r, seed, n=N_STATE):
+    """Seeded (streams, wx, wdt, dtb, A, Ds) of the fused cross-scan in the
+    model's regime (delta around softplus(-3) = 0.05, A near -(1..N), D
+    near 1), and an output gradient dy."""
+    import math
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    streams = [rnd(batch, L, dh) for _ in range(g)]
+    wx = rnd(g, r + 2 * n, dh) / math.sqrt(dh)
+    wdt = 0.5 * rnd(g, dh, r) / math.sqrt(r)
+    dtb = -3.0 + 0.5 * rnd(g, dh)
+    A = -torch.arange(1, n + 1, device="cuda").float() * torch.exp(0.1 * rnd(g * dh, n))
+    Ds = 1.0 + 0.1 * rnd(g * dh)
+    return streams, [wx, wdt, dtb, A, Ds], rnd(batch, L, g * dh)
+
+
+def phase_cross_scan_kernels():
+    """K3 at the serving and the training batch, K4 at the training batch,
+    both orientations: errors against the plain versions, times, bounds."""
+    import torch
+    from nnuzoo_tpu_torch.ops.cross_scan import (
+        cross_scan_bwd, cross_scan_bwd_plain, cross_scan_fwd, cross_scan_ref)
+    shapes = [(L, CROSS_G, CROSS_DH, CROSS_R) for L, _ in PATH_SHAPES] + [
+        (12, CROSS_G, CROSS_DH, CROSS_R), (1000, CROSS_G, CROSS_DH, CROSS_R),
+        (56, CROSS_G, 256, 8)]
+    names = ("d_streams", "dWx", "dWdt", "dbias", "dA", "dD")
+    fwd_rows, bwd_rows = [], []
+    for i, (L, g, dh, r) in enumerate(shapes):
+        for b in (TILE_BATCH, TRAIN_BATCH):
+            streams, w, dy = cross_inputs(b, L, g, dh, r, seed=100 + i)
+            for reverse in (False, True):
+                with torch.inference_mode():
+                    y, carries = cross_scan_fwd(streams, *w, reverse,
+                                                return_carries=True)
+                    want = cross_scan_ref(streams, *w, reverse)
+                    torch.cuda.synchronize()
+                    err = (y - want).abs().max().item()
+                    scale = want.abs().max().item()
+                    ms = time_ms(lambda: cross_scan_fwd(streams, *w, reverse),
+                                 reps=20)
+                    plain_ms = time_ms(lambda: cross_scan_ref(streams, *w, reverse),
+                                       reps=2, warmup=1)
+                del y, want
+                bound_ms, bound_by = cross_bound(b, L, g, dh, N_STATE, r, False)
+                row = dict(B=b, L=L, G=g, Dh=dh, R=r, reverse=reverse,
+                           max_abs_err=err, rel_err=err / scale, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                emit("cross_scan_kernel", **row)
+                if not err <= CROSS_TOL * scale:
+                    raise AssertionError(f"K3 disagrees at {row}")
+                fwd_rows.append(row)
+                if b != TRAIN_BATCH:
+                    continue
+                with torch.inference_mode():
+                    got = cross_scan_bwd(streams, *w, dy, reverse, carries)
+                    want = cross_scan_bwd_plain(streams, *w, dy, reverse)
+                    torch.cuda.synchronize()
+                    flat = lambda t: [torch.cat(t[0], -1), *t[1:]]
+                    errs = {k: ((a - e).abs().max().item(), e.abs().max().item())
+                            for k, a, e in zip(names, flat(got), flat(want))}
+                    ms = time_ms(lambda: cross_scan_bwd(streams, *w, dy, reverse,
+                                                        carries), reps=10)
+                    plain_ms = time_ms(lambda: cross_scan_bwd_plain(
+                        streams, *w, dy, reverse), reps=1, warmup=1)
+                del got, want
+                bound_ms, bound_by = cross_bound(b, L, g, dh, N_STATE, r, True)
+                row = dict(B=b, L=L, G=g, Dh=dh, R=r, reverse=reverse,
+                           max_abs_err=max(e for e, _ in errs.values()),
+                           rel_err={k: e / m for k, (e, m) in errs.items()},
+                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+                emit("cross_scan_bwd_kernel", **row)
+                for k, (e, m) in errs.items():
+                    tol = CROSS_TOL if k == "d_streams" else CROSS_WEIGHT_GRAD_TOL
+                    if not e <= tol * m:
+                        raise AssertionError(f"K4 disagrees at L={L} Dh={dh} "
+                                             f"reverse={reverse}, {k}: {e} > "
+                                             f"{tol} * {m}")
+                bwd_rows.append(row)
+            del streams, w, dy, carries
+        torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
 def compare(a, b):
     d = (a - b).abs()
     rng = (b.max() - b.min()).item()
@@ -300,6 +444,64 @@ def phase_blocks():
         torch.cuda.empty_cache()
 
 
+def phase_fused_ss2d():
+    """One SS2D at stage-1 width and 2x256x224: the fused glue (K3, K4)
+    against the default glue (K1, K2), output and the gradients of the input
+    and of every parameter."""
+    import torch
+    from nnuzoo_tpu_torch.models.layers import init_parameters
+    from nnuzoo_tpu_torch.models.ss2d import SS2D, set_ss2d_glue
+    g = torch.Generator(device="cuda").manual_seed(3)
+    module = SS2D(16)
+    init_parameters(module, torch.Generator().manual_seed(4))
+    module = module.cuda()
+    x = torch.randn(2, *PATCH, 16, device="cuda", generator=g).requires_grad_()
+    dout = torch.randn(2, *PATCH, 16, device="cuda", generator=g)
+    names = ["input"] + [n for n, _ in module.named_parameters()]
+    leaves = [x] + list(module.parameters())
+    runs = {}
+    for glue in ("default", "fused"):
+        set_ss2d_glue(module, glue)
+        out = module(x)
+        runs[glue] = (out.detach(), torch.autograd.grad(out, leaves, dout))
+        torch.cuda.synchronize()
+    c = compare(runs["fused"][0], runs["default"][0])
+    rel = {n: ((a - b).abs().max() / b.abs().max()).item()
+           for n, a, b in zip(names, runs["fused"][1], runs["default"][1])}
+    emit("fused_ss2d", shape=list(x.shape), **c, grad_rel_err=rel)
+    bad = {n: e for n, e in rel.items() if not e <= SS2D_GRAD_TOL}
+    if not c["max_abs"] <= SS2D_TOL * c["max_ref"] or bad:
+        raise AssertionError(f"fused SS2D vs default SS2D: {c}, gradients {bad}")
+    del runs
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def ss2d_glue(glue):
+    """``NNUZOO_SS2D_FUSED`` as a user sets it, for the models built inside."""
+    before = os.environ.get("NNUZOO_SS2D_FUSED")
+    os.environ["NNUZOO_SS2D_FUSED"] = "1" if glue == "fused" else "0"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["NNUZOO_SS2D_FUSED"]
+        else:
+            os.environ["NNUZOO_SS2D_FUSED"] = before
+
+
+def glue_kernels(glue):
+    """(forward kernel wrapper, backward kernel wrapper, launches of each per
+    forward, the other glue's wrappers) of an SS2D glue."""
+    from nnuzoo_tpu_torch.ops.cross_scan import cross_scan_bwd, cross_scan_fwd
+    from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
+    if glue == "fused":
+        return cross_scan_fwd, cross_scan_bwd, FUSED_PER_FORWARD, (scan_core,
+                                                                  scan_core_bwd)
+    return scan_core, scan_core_bwd, SCANS_PER_FORWARD, (cross_scan_fwd,
+                                                         cross_scan_bwd)
+
+
 def plans_and_dataset():
     rs = {"is_seg": False, "order": 3, "order_z": 0, "force_separate_z": None}
     plans = {
@@ -325,23 +527,27 @@ def plans_and_dataset():
     return plans, dataset_json
 
 
-def phase_end_to_end(profile):
+def phase_end_to_end(profile, glue="default"):
+    """Serving with one SS2D glue. Returns the forward kernel's launches of
+    the timed prediction."""
     import numpy as np
     import torch
     from nnuzoo_tpu_torch.inference.predictor import Predictor
     from nnuzoo_tpu_torch.inference.sliding_window import pad_nd_image
     from nnuzoo_tpu_torch.models.registry import get_model_builder
     from nnuzoo_tpu_torch.models.ss2d import set_scan_backend
-    from nnuzoo_tpu_torch.ops.selective_scan import scan_core
     from nnuzoo_tpu_torch.plans.plans_handler import PlansManager
     from nnuzoo_tpu_torch.preprocessing.preprocessor import DefaultPreprocessor
 
+    kernel, _, per_forward, others = glue_kernels(glue)
     plans, dataset_json = plans_and_dataset()
     pm = PlansManager(plans)
     cfg = pm.get_configuration("2d")
     t0 = time.perf_counter()
-    model = get_model_builder("nnUNetTrainerM2NetP")(
-        pm, dataset_json, cfg, 1, deep_supervision=False, device="cuda", seed=0)
+    with ss2d_glue(glue):
+        model = get_model_builder("nnUNetTrainerM2NetP")(
+            pm, dataset_json, cfg, 1, deep_supervision=False, device="cuda",
+            seed=0)
     predictor = Predictor(tile_step_size=0.5, use_gaussian=True,
                           use_mirroring=True, tile_batch_size=TILE_BATCH,
                           device="cuda")
@@ -354,24 +560,28 @@ def phase_end_to_end(profile):
 
     predictor.predict_single_npy_array(volume, dict(props))      # warm-up
     torch.cuda.synchronize()
-    scan_core.launches = 0
+    for k in (kernel, *others):
+        k.launches = 0
     predictor.forward_count = 0
     t0 = time.perf_counter()
     seg = predictor.predict_single_npy_array(volume, dict(props))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches, forwards = scan_core.launches, predictor.forward_count
+    launches, forwards = kernel.launches, predictor.forward_count
+    other_launches = sum(k.launches for k in others)
 
     labels = sorted(int(v) for v in np.unique(seg))
-    emit("end_to_end", model_build_s=build_s, seconds_per_volume=seconds,
-         volume=list(volume.shape), segmentation_shape=list(seg.shape),
-         labels=labels, forwards=forwards, scan_launches=launches,
+    emit("end_to_end", glue=glue, model_build_s=build_s,
+         seconds_per_volume=seconds, volume=list(volume.shape),
+         segmentation_shape=list(seg.shape), labels=labels, forwards=forwards,
+         scan_launches=launches, other_glue_launches=other_launches,
          launches_per_forward=launches / max(forwards, 1))
     if seg.shape != volume.shape[1:] or not set(labels) <= {0, 1, 2}:
         raise AssertionError(f"segmentation {seg.shape} labels {labels}")
-    if forwards == 0 or launches != SCANS_PER_FORWARD * forwards:
-        raise AssertionError(f"{launches} scan launches for {forwards} forwards, "
-                             f"expected {SCANS_PER_FORWARD} per forward")
+    if forwards == 0 or launches != per_forward * forwards or other_launches:
+        raise AssertionError(f"{launches} scan launches ({other_launches} of the "
+                             f"other glue's kernels) for {forwards} forwards, "
+                             f"expected {per_forward} per forward")
 
     # one tile batch (the first 4 tiles of the preprocessed volume) on the
     # card through the kernel path, the plain path in fp32 and, as the
@@ -399,7 +609,7 @@ def phase_end_to_end(profile):
         c["argmax_agreement"] = (out.argmax(-1) == want.argmax(-1)).float().mean().item()
         readings[name] = c
     readings["kernel_vs_plain_fp32"] = compare(got, plain)
-    emit("tile_logits", **readings)
+    emit("tile_logits", glue=glue, **readings)
     for name in ("kernel_vs_fp64", "plain_fp32_vs_fp64"):
         c = readings[name]
         if not (c["max_abs"] <= TILE_MAX_TOL * c["range_ref"]
@@ -411,11 +621,35 @@ def phase_end_to_end(profile):
         raise AssertionError(f"tile logits: the kernel path is further from "
                              f"fp64 than the fp32 plain path: {readings}")
     if profile:
-        profile_tile_batch(predictor, tiles)
+        profile_tile_batch(predictor, tiles, glue)
     return launches
 
 
-def profile_tile_batch(predictor, tiles):
+def kernel_ms(kernels, *names, exclude=()):
+    """Device ms of the profiled kernels whose names hold one of ``names``
+    and none of ``exclude``."""
+    return sum(e.self_device_time_total for e in kernels
+               if any(n in e.key for n in names)
+               and not any(x in e.key for x in exclude)) / 1e3
+
+
+# kernel-name fragments of the scan kernels in a profile: K1, K2, K3 (its
+# passes and the carry pass that K3 and K4 share), K4
+SCAN_KERNEL_NAMES = {
+    "k1": (("scan_chunk_kernel", "chunk_carry_kernel"), ()),
+    "k2": (("adjoint_chunk_kernel", "adjoint_carry_kernel", "grad_chunk_kernel"),
+           ("cross_scan",)),
+    "k3": (("chunk_kernel<",), ("scan_chunk", "adjoint_chunk", "grad_chunk")),
+    "k4": (("adjoint_chunk_kernel<", "grad_chunk_kernel<"), ("<16>",)),
+    "k3_k4_carry": (("cross_scan::carry_kernel",), ()),
+}
+
+
+def profile_suffix(glue):
+    return "" if glue == "default" else "_" + glue
+
+
+def profile_tile_batch(predictor, tiles, glue="default"):
     """Device time by kernel for one tile batch (4 mirrored forwards), and
     the share of the unprofiled wall time the device is busy."""
     import torch
@@ -434,16 +668,18 @@ def profile_tile_batch(predictor, tiles):
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     events = prof.key_averages()
-    (out_dir / "profile_tile_batch.txt").write_text(
+    table = f"chiprun_out/profile_tile_batch{profile_suffix(glue)}.txt"
+    (ROOT / table).write_text(
         events.table(sort_by="self_cuda_time_total", row_limit=40))
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
-    scan = sum(e.self_device_time_total for e in kernels
-               if "scan_chunk_kernel" in e.key or "chunk_carry_kernel" in e.key) / 1e3
-    emit("profile", tile_batch_wall_ms=wall_ms, device_ms=total,
+    names = ("k3", "k3_k4_carry") if glue == "fused" else ("k1",)
+    scan = sum(kernel_ms(kernels, *SCAN_KERNEL_NAMES[n][0],
+                         exclude=SCAN_KERNEL_NAMES[n][1]) for n in names)
+    emit("profile", glue=glue, tile_batch_wall_ms=wall_ms, device_ms=total,
          scan_kernel_ms=scan, scan_share=scan / total if total else None,
          device_busy_share=total / wall_ms, launches=sum(e.count for e in kernels),
-         table="chiprun_out/profile_tile_batch.txt")
+         table=table)
 
 
 def write_dataset(folder, cases=3, shape=(8, 280, 320), seed=0):
@@ -472,15 +708,16 @@ def write_dataset(folder, cases=3, shape=(8, 280, 320), seed=0):
                          "spacing": [3.0, 1.0, 1.0]}, f)
 
 
-def phase_training(profile):
+def phase_training(profile, glue="default"):
     """``Trainer.run_training()`` for one epoch of TRAIN_STEPS steps and one
-    validation step. Returns the trainer, one sampled batch, the scan
-    launches (forward, backward) of the run and the weights it ended with."""
+    validation step, with one SS2D glue. Returns the trainer, one sampled
+    batch, the scan launches (forward, backward) of the run and the weights
+    it ended with."""
     import numpy as np
     import torch
-    from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
     from nnuzoo_tpu_torch.training.trainer import Trainer
 
+    fwd_kernel, bwd_kernel, per_forward, others = glue_kernels(glue)
     plans, dataset_json = plans_and_dataset()
     write_dataset(os.path.join(os.environ["nnUNet_preprocessed"],
                                plans["dataset_name"], "nnUNetPlans_2d"))
@@ -488,7 +725,8 @@ def phase_training(profile):
                       trainer_name="nnUNetTrainerM2NetP", device="cuda", seed=0)
     trainer.config = replace(trainer.config, num_iterations_per_epoch=TRAIN_STEPS,
                              num_val_iterations_per_epoch=1)
-    trainer.initialize()        # builds the model and probes its output scales
+    with ss2d_glue(glue):
+        trainer.initialize()    # builds the model and probes its output scales
 
     # observe the steps that run_training takes: time, loss and launches of each
     steps, batches = [], []
@@ -497,24 +735,26 @@ def phase_training(profile):
     def observed_step(data, seg):
         batches.append((data, seg))
         torch.cuda.synchronize()
-        before = scan_core.launches, scan_core_bwd.launches
+        before = fwd_kernel.launches, bwd_kernel.launches
         t0 = time.perf_counter()
         loss = inner(data, seg)
         torch.cuda.synchronize()
         steps.append(dict(seconds=time.perf_counter() - t0, loss=loss.item(),
-                          fwd_launches=scan_core.launches - before[0],
-                          bwd_launches=scan_core_bwd.launches - before[1]))
+                          fwd_launches=fwd_kernel.launches - before[0],
+                          bwd_launches=bwd_kernel.launches - before[1]))
         return loss
 
     trainer.train_step = observed_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    scan_core.launches = scan_core_bwd.launches = 0
+    for k in (fwd_kernel, bwd_kernel, *others):
+        k.launches = 0
     t0 = time.perf_counter()
     trainer.run_training()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = scan_core.launches, scan_core_bwd.launches
+    launches = fwd_kernel.launches, bwd_kernel.launches
+    other_launches = sum(k.launches for k in others)
     trainer.train_step = inner
     peak = torch.cuda.max_memory_allocated()
     trained = {k: v.detach().cpu().clone()
@@ -522,14 +762,14 @@ def phase_training(profile):
 
     losses = [s["loss"] for s in steps]
     log = trainer.logger.my_fantastic_logging
-    emit("training", steps=steps, losses=losses,
+    emit("training", glue=glue, steps=steps, losses=losses,
          loss_fell=losses[-1] < losses[0],
          seconds_per_step_after_first=float(np.mean([s["seconds"]
                                                      for s in steps[1:]])),
          run_training_seconds=seconds, val_loss=log["val_losses"][0],
          pseudo_dice=log["dice_per_class_or_region"][0],
          fwd_launches=launches[0], bwd_launches=launches[1],
-         peak_memory_bytes=peak, batch=list(batches[0][0].shape),
+         other_glue_launches=other_launches, peak_memory_bytes=peak, batch=list(batches[0][0].shape),
          remat=trainer.model.remat,
          ds_scales=[list(s) for s in trainer.train_aug_cfg.deep_supervision_scales])
     if len(steps) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
@@ -537,25 +777,29 @@ def phase_training(profile):
         raise AssertionError(f"training losses {losses}, val {log['val_losses']}")
     if tuple(batches[0][0].shape[:2]) != (TRAIN_BATCH, 1):
         raise AssertionError(f"batch shape {batches[0][0].shape}")
+    # with remat off a step runs one forward and one backward of the model;
+    # with it on, stages run forwards again
     for s in steps:
-        if s["bwd_launches"] != SCANS_PER_FORWARD or \
-                s["fwd_launches"] < SCANS_PER_FORWARD:
+        if s["bwd_launches"] != per_forward or s["fwd_launches"] < per_forward or \
+                (not trainer.model.remat and s["fwd_launches"] != per_forward):
             raise AssertionError(f"scan launches of a step: {s}")
     # the validation step is one more forward
-    if launches[1] != TRAIN_STEPS * SCANS_PER_FORWARD or \
-            launches[0] < (TRAIN_STEPS + 1) * SCANS_PER_FORWARD:
-        raise AssertionError(f"scan launches of the run: {launches}")
+    if launches[1] != TRAIN_STEPS * per_forward or \
+            launches[0] < (TRAIN_STEPS + 1) * per_forward or other_launches:
+        raise AssertionError(f"scan launches of the run: {launches}, "
+                             f"{other_launches} of the other glue's kernels")
     for name in ("checkpoint_final.pth", "checkpoint_best.pth"):
         if not os.path.isfile(os.path.join(trainer.output_folder, name)):
             raise AssertionError(f"{name} was not written")
     if profile:
-        profile_train_step(trainer, *batches[-1])
+        profile_train_step(trainer, *batches[-1], glue=glue)
     return trainer, batches[-1], launches, trained
 
 
-def profile_train_step(trainer, data, seg):
+def profile_train_step(trainer, data, seg, glue="default"):
     """Device time by kernel for one training step, the share of the
-    unprofiled step time the device is busy, and the step with ``remat``."""
+    unprofiled step time the device is busy, the device time under
+    ``aten::bmm``, and the step with ``remat``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -572,25 +816,24 @@ def profile_train_step(trainer, data, seg):
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     events = prof.key_averages()
-    (out_dir / "profile_train_step.txt").write_text(
+    table = f"chiprun_out/profile_train_step{profile_suffix(glue)}.txt"
+    (ROOT / table).write_text(
         events.table(sort_by="self_cuda_time_total", row_limit=40))
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
-
-    def share(*names):
-        return sum(e.self_device_time_total for e in kernels
-                   if any(n in e.key for n in names)) / 1e3
-    fwd = share("scan_chunk_kernel", "chunk_carry_kernel")
-    bwd = share("adjoint_chunk_kernel", "adjoint_carry_kernel", "grad_chunk_kernel")
+    by_kernel = {n: kernel_ms(kernels, *names, exclude=exclude)
+                 for n, (names, exclude) in SCAN_KERNEL_NAMES.items()}
+    fwd, bwd = ((by_kernel["k3"], by_kernel["k4"]) if glue == "fused"
+                else (by_kernel["k1"], by_kernel["k2"]))
     # the same step with M2NetP's remat off and on: time, peak memory, launches
-    from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
+    fwd_kernel, bwd_kernel, _, _ = glue_kernels(glue)
     remat_readings = {}
     for remat in (False, True):
         trainer.model.remat = remat
         trainer.train_step(data, seg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        scan_core.launches = scan_core_bwd.launches = 0
+        fwd_kernel.launches = bwd_kernel.launches = 0
         t0 = time.perf_counter()
         for _ in range(2):
             trainer.train_step(data, seg)
@@ -598,15 +841,18 @@ def profile_train_step(trainer, data, seg):
         remat_readings["remat_on" if remat else "remat_off"] = dict(
             seconds_per_step=(time.perf_counter() - t0) / 2,
             peak_memory_bytes=torch.cuda.max_memory_allocated(),
-            fwd_launches_per_step=scan_core.launches / 2,
-            bwd_launches_per_step=scan_core_bwd.launches / 2)
+            fwd_launches_per_step=fwd_kernel.launches / 2,
+            bwd_launches_per_step=bwd_kernel.launches / 2)
     trainer.model.remat = False
-    emit("profile_train_step", step_wall_ms=wall_ms, device_ms=total,
-         **remat_readings,
+    emit("profile_train_step", glue=glue, step_wall_ms=wall_ms, device_ms=total,
+         **remat_readings, scan_kernel_ms_by_name=by_kernel,
          scan_fwd_kernel_ms=fwd, scan_bwd_kernel_ms=bwd,
          scan_share=(fwd + bwd) / total if total else None,
+         # the default glue's projection weight gradients run under bmm
+         bmm_ms=sum(e.device_time_total for e in events
+                    if e.key == "aten::bmm") / 1e3,
          device_busy_share=total / wall_ms, launches=sum(e.count for e in kernels),
-         table="chiprun_out/profile_train_step.txt")
+         table=table)
 
 
 def step_readings(trainer, model, data_aug, targets):
@@ -673,13 +919,13 @@ def step_readings(trainer, model, data_aug, targets):
                           parameters=len(want), parameters_with_gradient=len(live))
 
 
-def phase_step_agreement(trainer, batch):
+def phase_step_agreement(trainer, batch, glue="default"):
     """One training step's loss and gradients from the same weights and the
     same batch (the first STEP_BATCH samples, augmented once, DropPath off),
-    kernel path and fp32 plain path against the plain path in fp64: for the
-    trainer's model at full depth, and for M2NetP at the same widths with
-    stage layers (1, 1, 1, 1), where fp32 is well conditioned and the limits
-    are tight."""
+    kernel path and fp32 plain path against the plain path in fp64: for
+    M2NetP at the trainer's widths with stage layers (1, 1, 1, 1), where fp32
+    is well conditioned and the limits are tight, and, with the default
+    glue, for the trainer's model at full depth."""
     import torch
     from nnuzoo_tpu_torch.data.augment import augment_train_batch
     from nnuzoo_tpu_torch.models.registry import get_model_builder
@@ -689,16 +935,18 @@ def phase_step_agreement(trainer, batch):
         data_aug, targets = augment_train_batch(
             trainer.train_aug_cfg, torch.Generator(device="cuda").manual_seed(7),
             data, seg)
-    shallow = get_model_builder(trainer.trainer_name)(
-        trainer.plans_manager, trainer.dataset_json, trainer.configuration_manager,
-        trainer.num_input_channels, True, device="cuda", seed=1,
-        stage_layers=(1, 1, 1, 1))
-    for depth, model, limits in (
-            ("stage_layers_1_1_1_1", shallow, SHALLOW_STEP_LIMITS),
-            ("full_depth", trainer.model, STEP_LIMITS)):
+    with ss2d_glue(glue):
+        shallow = get_model_builder(trainer.trainer_name)(
+            trainer.plans_manager, trainer.dataset_json,
+            trainer.configuration_manager, trainer.num_input_channels, True,
+            device="cuda", seed=1, stage_layers=(1, 1, 1, 1))
+    models = [("stage_layers_1_1_1_1", shallow, SHALLOW_STEP_LIMITS)]
+    if glue == "default":
+        models.append(("full_depth", trainer.model, STEP_LIMITS))
+    for depth, model, limits in models:
         readings, reference = step_readings(trainer, model, data_aug, targets)
-        emit("step_agreement", depth=depth, batch=STEP_BATCH, **reference,
-             **readings)
+        emit("step_agreement", glue=glue, depth=depth, batch=STEP_BATCH,
+             **reference, **readings)
         for name, r in readings.items():
             if not (r["finite"] and all(r[key] <= limit for key, limit in
                                         limits.items() if key in r)):
@@ -737,11 +985,10 @@ def phase_train_save_predict(trainer, trained):
                              f"{seg.shape} {labels}")
 
 
-def kernel_entry(name, source, replaces, launches, rows, weight, per, **more):
-    """One kernel's line: the per-shape rows, and their times weighted by the
-    calls of each shape in one pass of the path."""
-    path = [r for r in rows if r["KD"] == KD and r["L"] in weight
-            and r["B"] == TRAIN_BATCH]
+def kernel_entry(name, source, replaces, launches, rows, path, weight, per,
+                 **more):
+    """One kernel's line: the per-shape rows, and the times of the rows of
+    the training path weighted by the calls of each length in one step."""
     sums = {key: sum(weight[r["L"]] * r[key] for r in path)
             for key in ("ms", "plain_ms", "bound_ms")}
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -751,6 +998,12 @@ def kernel_entry(name, source, replaces, launches, rows, weight, per, **more):
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in path)
             else "operations",
             "per": per, **more, "shapes": rows}
+
+
+def on_path(rows, weight, batch, **widths):
+    """The rows at the main paths' lengths, the given batch and widths."""
+    return [r for r in rows if r["L"] in weight and r["B"] == batch
+            and all(r[k] == v for k, v in widths.items())]
 
 
 def main():
@@ -765,7 +1018,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     profile = "--profile" in sys.argv[1:]
 
-    print(card_line(), flush=True)
+    LOG.parent.mkdir(exist_ok=True)
+    LOG.write_text("")
+    out(card_line())
     t0 = time.perf_counter()
     built = _build.build_all()
     emit("build", seconds=time.perf_counter() - t0, built=sorted(built),
@@ -784,6 +1039,20 @@ def main():
         phase_step_agreement(trainer, batch)
         phase_train_save_predict(trainer, trained)
         del trainer, batch, trained
+    torch.cuda.empty_cache()
+
+    # the fused cross-scan glue (NNUZOO_SS2D_FUSED=1): K3 and K4
+    cross_fwd_rows, cross_bwd_rows = phase_cross_scan_kernels()
+    phase_fused_ss2d()
+    fused_serving_launches = phase_end_to_end(profile, "fused")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
+        os.environ["nnUNet_results"] = os.path.join(tmp, "results")
+        trainer, batch, (k3_launches, k4_launches), _ = \
+            phase_training(profile, "fused")
+        phase_step_agreement(trainer, batch, "fused")
+        del trainer, batch
 
     # one training step's scan work: the per-shape numbers at the training
     # batch weighted by the calls of each shape
@@ -791,34 +1060,59 @@ def main():
     per = (f"one training step: {SCANS_PER_FORWARD} launches at B={TRAIN_BATCH}; "
            f"'launches' counts the training run ({TRAIN_STEPS} steps and one "
            f"validation step)")
-    serving = [r for r in fwd_rows if r["B"] == TILE_BATCH and r["KD"] == KD
-               and r["L"] in weight]
+    fused_per = (f"one training step with the fused glue: {FUSED_PER_FORWARD} "
+                 f"launches at B={TRAIN_BATCH}, {SCANS_PER_FORWARD} in each "
+                 f"orientation; 'launches' counts the fused training run "
+                 f"({TRAIN_STEPS} steps and one validation step)")
+    cross = dict(G=CROSS_G, Dh=CROSS_DH, R=CROSS_R)
     kernels = [
         kernel_entry("selective_scan_fwd",
                      "nnuzoo_tpu_torch/csrc/selective_scan_fwd.cu",
                      "nnuzoo_tpu/ops/selective_scan.py:868", fwd_launches,
-                     fwd_rows, weight, per,
+                     fwd_rows, on_path(fwd_rows, weight, TRAIN_BATCH, KD=KD),
+                     weight, per,
                      launches_by_path={"serving": serving_launches,
                                        "training": fwd_launches},
-                     serving_forward_ms=sum(weight[r["L"]] * r["ms"]
-                                            for r in serving)),
+                     serving_forward_ms=sum(
+                         weight[r["L"]] * r["ms"]
+                         for r in on_path(fwd_rows, weight, TILE_BATCH, KD=KD))),
         kernel_entry("selective_scan_bwd",
                      "nnuzoo_tpu_torch/csrc/selective_scan_bwd.cu",
                      "nnuzoo_tpu/ops/selective_scan.py:915", bwd_launches,
-                     bwd_rows, weight, per,
+                     bwd_rows, on_path(bwd_rows, weight, TRAIN_BATCH, KD=KD),
+                     weight, per,
                      launches_by_path={"training": bwd_launches}),
+        kernel_entry("cross_scan_fwd",
+                     "nnuzoo_tpu_torch/csrc/cross_scan_fwd.cu",
+                     "nnuzoo_tpu/ops/cross_scan.py:313", k3_launches,
+                     cross_fwd_rows,
+                     on_path(cross_fwd_rows, weight, TRAIN_BATCH, **cross),
+                     weight, fused_per,
+                     launches_by_path={"serving_fused": fused_serving_launches,
+                                       "training_fused": k3_launches},
+                     serving_forward_ms=sum(
+                         weight[r["L"]] * r["ms"] for r in
+                         on_path(cross_fwd_rows, weight, TILE_BATCH, **cross))),
+        kernel_entry("cross_scan_bwd",
+                     "nnuzoo_tpu_torch/csrc/cross_scan_bwd.cu",
+                     "nnuzoo_tpu/ops/cross_scan.py:346", k4_launches,
+                     cross_bwd_rows,
+                     on_path(cross_bwd_rows, weight, TRAIN_BATCH, **cross),
+                     weight, fused_per,
+                     launches_by_path={"training_fused": k4_launches}),
     ]
-    if serving_launches <= 0 or fwd_launches <= 0 or bwd_launches <= 0:
+    if min(serving_launches, fwd_launches, bwd_launches, fused_serving_launches,
+           k3_launches, k4_launches) <= 0:
         raise AssertionError("a kernel of the main paths was never launched")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    out(json.dumps({"kernels": kernels}))
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax", "nnuzoo_tpu"))
     if leaked:
         raise AssertionError(f"JAX-side modules imported: {leaked}")
-    print(json.dumps({"ok": True, "device": {
+    out(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under ``build/kernels/``
 at the root of the checkout, then loaded with ``ctypes``. The library's name
-carries a hash of its source, so an edited source builds anew and an unchanged
-one is reused. Nothing is compiled when this module is imported: a kernel is
+carries a hash of its source and of the shared headers ``csrc/*.cuh``, so an
+edited source or header builds anew and an unchanged one is reused. Nothing is compiled when this module is imported: a kernel is
 built on its first use, or for all sources at once by :func:`build_all`, which
 starts one ``nvcc`` per source in parallel.
 """
@@ -45,7 +45,12 @@ def sources() -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    """The library's path, named by a hash of its source and of every header
+    in ``csrc/`` (a source may include any of them)."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

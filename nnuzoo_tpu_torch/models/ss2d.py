@@ -1,29 +1,55 @@
 """SS2D: 4-direction visual selective scan (port of
-``nnuzoo_tpu/models/ss2d.py``, its default glue).
+``nnuzoo_tpu/models/ss2d.py``).
 
-Channels-last. The 4 scan directions (row-major, column-major and their
-reverses) become K=4 groups of one :func:`selective_scan_blkd` call, which
-reaches the CUDA scan kernel on the card. The JAX package's lane-packed and
-fused-cross-scan glue are TPU layout experiments and have no counterpart.
+Channels-last. The 4 scan directions are row-major, column-major and their
+reverses. Two glues compute the same function:
+
+- "default": the 4 directions become K=4 groups of one
+  :func:`selective_scan_blkd` call (projections in PyTorch, the selective-scan
+  kernels on the card);
+- "fused": two :func:`cross_scan_fused` calls, one per traversal
+  orientation, each running the projections and the scan of both axis orders
+  in the fused cross-scan kernels; the reversed sequences are never built.
+
+The glue is read from ``NNUZOO_SS2D_FUSED`` when the SS2D is built ("1":
+fused; unset or "0": default), as the JAX package reads it, and can be set
+afterwards with :func:`set_ss2d_glue`. The JAX package's lane-packed glue
+(``NNUZOO_SS2D_PACKED``) is not ported yet.
 """
 
 import math
+import os
 from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.cross_scan import cross_scan_fused
 from ..ops.selective_scan import selective_scan_blkd
 from .layers import DropPath, conv_cl
+
+GLUES = ("default", "fused")
+
+
+def fused_scan_mode() -> bool:
+    """Whether ``NNUZOO_SS2D_FUSED`` selects the fused glue: "1" does, unset
+    or "0" does not; anything else raises (the port has no interpret mode:
+    on the CPU the fused glue runs its plain version)."""
+    env = os.environ.get("NNUZOO_SS2D_FUSED") or "0"
+    if env not in ("0", "1"):
+        raise ValueError(f"NNUZOO_SS2D_FUSED must be 0 or 1, got {env!r}")
+    return env == "1"
 
 
 class SS2D(nn.Module):
     """x (B, H, W, d_model) -> same shape.
 
-    ``scan_backend`` is passed to :func:`selective_scan_blkd`: None runs the
-    kernel path, "plain" the plain PyTorch scan (used to compare the two on
-    the card, see :func:`set_scan_backend`)."""
+    ``glue`` is "default" or "fused" (see the module's docstring).
+    ``scan_backend`` is passed to :func:`selective_scan_blkd` or
+    :func:`cross_scan_fused`: None runs the kernel path, "plain" and
+    "plain_pair" the plain PyTorch scan (used to compare the two on the card,
+    see :func:`set_scan_backend`)."""
 
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 3,
                  expand: int = 2, dt_rank: Optional[int] = None,
@@ -48,6 +74,7 @@ class SS2D(nn.Module):
         self.out_proj = nn.Linear(d_inner, d_model, bias=bias)
         self.dropout = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
         self.scan_backend: Optional[str] = None
+        self.glue = "fused" if fused_scan_mode() else "default"
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None,
                          dt_min: float = 0.001, dt_max: float = 0.1,
@@ -78,19 +105,34 @@ class SS2D(nn.Module):
         # the 2 traversal orders; directions 2/3 are their reversals
         x_hw = xc.reshape(B, L, D)
         x_wh = xc.transpose(1, 2).reshape(B, L, D)
-        xs = torch.stack([x_hw, x_wh, x_hw.flip(1), x_wh.flip(1)], dim=2)
-        x_dbl = torch.einsum("blkd,kcd->blkc", xs, self.x_proj_weight)
-        dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
-        dts = torch.einsum("blkr,kdr->blkd", dts, self.dt_projs_weight)
         A = -torch.exp(self.A_logs)
-        out_y = selective_scan_blkd(
-            xs, dts, A, Bs, Cs, D=self.Ds,
-            delta_bias=self.dt_projs_bias.reshape(-1), delta_softplus=True,
-            backend=self.scan_backend)                      # (B, L, K, D)
+        if self.glue == "fused":
+            # directions 0/1 forwards, then 2/3 as the same streams walked
+            # from the right; y comes back in natural order
+            streams, D2 = (x_hw, x_wh), 2 * D
+            y_f = cross_scan_fused(
+                streams, self.x_proj_weight[:2], self.dt_projs_weight[:2],
+                self.dt_projs_bias[:2], A[:D2], self.Ds[:D2], reverse=False,
+                backend=self.scan_backend)
+            y_r = cross_scan_fused(
+                streams, self.x_proj_weight[2:], self.dt_projs_weight[2:],
+                self.dt_projs_bias[2:], A[D2:], self.Ds[D2:], reverse=True,
+                backend=self.scan_backend)
+            ys = y_f + y_r                                  # (B, L, [hw | wh])
+            y_hw, y_wh = ys[..., :D], ys[..., D:]
+        else:
+            xs = torch.stack([x_hw, x_wh, x_hw.flip(1), x_wh.flip(1)], dim=2)
+            x_dbl = torch.einsum("blkd,kcd->blkc", xs, self.x_proj_weight)
+            dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
+            dts = torch.einsum("blkr,kdr->blkd", dts, self.dt_projs_weight)
+            out_y = selective_scan_blkd(
+                xs, dts, A, Bs, Cs, D=self.Ds,
+                delta_bias=self.dt_projs_bias.reshape(-1), delta_softplus=True,
+                backend=self.scan_backend)                  # (B, L, K, D)
+            y_hw = out_y[:, :, 0] + out_y[:, :, 2].flip(1)
+            y_wh = out_y[:, :, 1] + out_y[:, :, 3].flip(1)
 
-        # merge the 4 directions back into row-major order
-        y_hw = out_y[:, :, 0] + out_y[:, :, 2].flip(1)
-        y_wh = out_y[:, :, 1] + out_y[:, :, 3].flip(1)
+        # merge the directions back into row-major order
         y = y_hw.reshape(B, H, W, D) + y_wh.reshape(B, W, H, D).transpose(1, 2)
         y = self.out_norm(y) * F.silu(z)
         return self.dropout(self.out_proj(y))
@@ -130,7 +172,17 @@ class VSSLayer(nn.Module):
 
 def set_scan_backend(model: nn.Module, backend: Optional[str]) -> None:
     """Point every SS2D in ``model`` at a scan backend (None: the kernel path;
-    "plain": the plain PyTorch scan)."""
+    "plain": the plain PyTorch scan; "plain_pair": the plain scan with its
+    plain backward). It applies to either glue."""
     for module in model.modules():
         if isinstance(module, SS2D):
             module.scan_backend = backend
+
+
+def set_ss2d_glue(model: nn.Module, glue: str) -> None:
+    """Set the glue of every SS2D in ``model``: "default" or "fused"."""
+    if glue not in GLUES:
+        raise ValueError(f"glue must be one of {GLUES}, got {glue!r}")
+    for module in model.modules():
+        if isinstance(module, SS2D):
+            module.glue = glue

@@ -1,0 +1,368 @@
+"""Fused cross-scan: the projections of each scan direction and its selective
+scan as one function (port of ``nnuzoo_tpu/ops/cross_scan.py``).
+
+SS2D scans G axis orders of its conv output ("streams"), each forwards and
+backwards. For one traversal orientation, :func:`cross_scan_fused` computes,
+per direction g, x_dbl = x_proj[g] u (dt, B, C), delta = softplus(dt_proj[g]
+dt + bias), the selective scan and the D term, and returns y in natural
+order. ``reverse=True`` scans the same streams from the right: no flipped
+copy, and on the card no x_dbl, delta or B/C, ever reaches device memory.
+
+- :func:`cross_scan_ref`: the plain forward, the JAX oracle's math over the
+  port's plain scan; autograd goes through it.
+- :func:`cross_scan_fwd`: on a CUDA tensor the hand-written kernel
+  ``csrc/cross_scan_fwd.cu``; on a CPU tensor :func:`cross_scan_ref`.
+- :func:`cross_scan_bwd`: its gradients; on CUDA tensors
+  ``csrc/cross_scan_bwd.cu``, on CPU tensors :func:`cross_scan_bwd_plain`.
+- :func:`cross_scan_fused`: the entry SS2D uses, differentiable.
+
+The JAX kernel packs batch elements into the TPU's 128 lanes; the port has no
+such layout, and its gradient of A comes back as (G*Dh, N) directly.
+"""
+
+import ctypes
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from .. import _build
+from .selective_scan import _pick_chunk, selective_scan_blkd
+
+KERNEL_STATE_SIZE = 16
+KERNEL_MAX_RANK = 8
+KERNEL_GROUPS = (2, 3)
+KERNEL_MAX_DH = 256
+
+
+# ------------------------------------------------------------------ plain
+def _glue(streams, x_proj_weight, dt_weight, dt_bias, A, Ds, reverse,
+          scan_backend):
+    G = len(streams)
+    N = A.shape[1]
+    R = x_proj_weight.shape[1] - 2 * N
+    xs = torch.stack(list(streams), 2)                      # (B, L, G, Dh)
+    if reverse:
+        xs = xs.flip(1)
+    x_dbl = torch.einsum("blgd,gcd->blgc", xs, x_proj_weight)
+    dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
+    dts = torch.einsum("blgr,gdr->blgd", dts, dt_weight)
+    y = selective_scan_blkd(xs, dts, A, Bs, Cs, D=Ds,
+                            delta_bias=dt_bias.reshape(-1), delta_softplus=True,
+                            backend=scan_backend)           # (B, L, G, Dh)
+    if reverse:
+        y = y.flip(1)
+    batch, L = xs.shape[:2]
+    return y.reshape(batch, L, G * xs.shape[-1])
+
+
+def cross_scan_ref(streams: Sequence[torch.Tensor], x_proj_weight, dt_weight,
+                   dt_bias, A, Ds, reverse: bool = False) -> torch.Tensor:
+    """The plain forward, also the kernel's oracle. streams: G tensors (B, L,
+    Dh); x_proj_weight (G, R+2N, Dh); dt_weight (G, Dh, R); dt_bias (G, Dh);
+    A (G*Dh, N), already negated; Ds (G*Dh,). Returns y (B, L, G*Dh) in
+    natural order, ``u * D`` included, in fp32 (fp64 for fp64 inputs).
+    Autograd through it keeps every level of the plain scan."""
+    return _glue(streams, x_proj_weight, dt_weight, dt_bias, A, Ds, reverse,
+                 "plain")
+
+
+def cross_scan_bwd_plain(streams, x_proj_weight, dt_weight, dt_bias, A, Ds, dy,
+                         reverse: bool = False):
+    """The backward kernel's plain version: (d_streams, dWx, dWdt, dbias, dA,
+    dD) of :func:`cross_scan_ref` for the output gradient ``dy`` (B, L,
+    G*Dh). Autograd through the projections around the plain scan pair
+    (``scan_core_plain`` with ``scan_core_bwd_plain`` as its gradient), which
+    keeps the scan's inputs only."""
+    G = len(streams)
+    # copies that autograd may record, even when called in inference mode
+    with torch.inference_mode(False), torch.enable_grad():
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  (*streams, x_proj_weight, dt_weight, dt_bias, A, Ds)]
+        y = _glue(leaves[:G], *leaves[G:], reverse, "plain_pair")
+        grads = torch.autograd.grad(y, leaves, dy.clone())
+    return (tuple(grads[:G]), *grads[G:])
+
+
+# ------------------------------------------------------------------ kernels
+_fwd_fn = None
+_bwd_fns = None
+
+
+def _fwd_kernel_fn():
+    global _fwd_fn
+    if _fwd_fn is None:
+        fn = _build.load("cross_scan_fwd").nnuzoo_cross_scan_fwd
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fwd_fn = fn
+    return _fwd_fn
+
+
+def _bwd_kernel_fns():
+    """(the backward's entry, its count of stored states per chunk)."""
+    global _bwd_fns
+    if _bwd_fns is None:
+        lib = _build.load("cross_scan_bwd")
+        fn = lib.nnuzoo_cross_scan_bwd
+        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        nsub = lib.nnuzoo_cross_scan_bwd_nsub
+        nsub.argtypes = [ctypes.c_int] * 3
+        nsub.restype = ctypes.c_int
+        _bwd_fns = (fn, nsub)
+    return _bwd_fns
+
+
+def _check_kernel_inputs(streams, x_proj_weight, dt_weight, dt_bias, A, Ds,
+                         dy=None):
+    """Raise on anything the kernels do not take. Returns (B, L, G, Dh, R)."""
+    G = len(streams)
+    if G not in KERNEL_GROUPS:
+        raise ValueError(f"the cross-scan kernels take G in {KERNEL_GROUPS} "
+                         f"streams, got {G}")
+    tensors = {f"streams[{g}]": s for g, s in enumerate(streams)}
+    tensors.update(x_proj_weight=x_proj_weight, dt_weight=dt_weight,
+                   dt_bias=dt_bias, A=A, Ds=Ds)
+    if dy is not None:
+        tensors["dy"] = dy
+    dev = streams[0].device
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, streams[0] on {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the cross-scan kernels take float32, {name} is "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"the cross-scan kernels take contiguous tensors, "
+                             f"{name} is not")
+    if streams[0].dim() != 3 or any(s.shape != streams[0].shape for s in streams):
+        raise ValueError(f"the streams must be G tensors (B, L, Dh) of one shape, "
+                         f"got {[tuple(s.shape) for s in streams]}")
+    batch, L, Dh = streams[0].shape
+    if Dh % 32 or not 32 <= Dh <= KERNEL_MAX_DH:
+        raise ValueError(f"the cross-scan kernels take Dh a multiple of 32 up to "
+                         f"{KERNEL_MAX_DH} (a warp is 32 channels of one "
+                         f"direction), got Dh={Dh}")
+    N = KERNEL_STATE_SIZE
+    if A.shape != (G * Dh, N):
+        raise ValueError(f"A must be ({G * Dh}, {N}) (N={N} only), got "
+                         f"{tuple(A.shape)}")
+    R = x_proj_weight.shape[1] - 2 * N if x_proj_weight.dim() == 3 else 0
+    if x_proj_weight.shape != (G, R + 2 * N, Dh) or not 1 <= R <= KERNEL_MAX_RANK:
+        raise ValueError(f"x_proj_weight must be ({G}, R+{2 * N}, {Dh}) with R in "
+                         f"1..{KERNEL_MAX_RANK}, got {tuple(x_proj_weight.shape)}")
+    if dt_weight.shape != (G, Dh, R) or dt_bias.shape != (G, Dh) or \
+            Ds.shape != (G * Dh,):
+        raise ValueError(f"dt_weight, dt_bias, Ds must be ({G}, {Dh}, {R}), "
+                         f"({G}, {Dh}), ({G * Dh},), got {tuple(dt_weight.shape)}, "
+                         f"{tuple(dt_bias.shape)}, {tuple(Ds.shape)}")
+    if dy is not None and dy.shape != (batch, L, G * Dh):
+        raise ValueError(f"dy must be ({batch}, {L}, {G * Dh}), got "
+                         f"{tuple(dy.shape)}")
+    if batch > 65535 or L < 1:
+        raise ValueError(f"batch {batch} or L {L} out of the kernels' grid")
+    return batch, L, G, Dh, R
+
+
+def _stream_ptrs(tensors):
+    return [t.data_ptr() for t in tensors] + [None] * (3 - len(tensors))
+
+
+def _cross_scan_fwd_cuda(streams, x_proj_weight, dt_weight, dt_bias, A, Ds,
+                         reverse):
+    """Launch the forward kernel: (y, carries), carries the state entering
+    each traversal chunk, (B, chunks, N, G*Dh), or None with one chunk."""
+    batch, L, G, Dh, R = _check_kernel_inputs(streams, x_proj_weight, dt_weight,
+                                              dt_bias, A, Ds)
+    N = KERNEL_STATE_SIZE
+    dev = streams[0].device
+    chunk = _pick_chunk(batch, L, G * Dh)
+    nchunks = math.ceil(L / chunk)
+    y = torch.empty(batch, L, G * Dh, device=dev)
+    states = dsum = None
+    if nchunks > 1:
+        states = torch.empty(batch, nchunks, N, G * Dh, device=dev)
+        dsum = torch.empty(batch, nchunks, G * Dh, device=dev)
+    fn = _fwd_kernel_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*_stream_ptrs(streams), x_proj_weight.data_ptr(),
+                dt_weight.data_ptr(), dt_bias.data_ptr(), A.data_ptr(),
+                Ds.data_ptr(), y.data_ptr(),
+                states.data_ptr() if states is not None else None,
+                dsum.data_ptr() if dsum is not None else None,
+                batch, L, G, Dh, R, N, chunk, int(reverse), stream)
+    if rc != 0:
+        raise RuntimeError(f"cross_scan_fwd kernel launch failed with CUDA error "
+                           f"{rc}")
+    cross_scan_fwd.launches += 1
+    return y, states
+
+
+def cross_scan_fwd(streams, x_proj_weight, dt_weight, dt_bias, A, Ds,
+                   reverse: bool = False, return_carries: bool = False):
+    """y (B, L, G*Dh) of :func:`cross_scan_ref` (no gradient: see
+    :func:`cross_scan_fused`).
+
+    On CUDA tensors this launches ``csrc/cross_scan_fwd.cu`` on the current
+    stream and counts the launch in ``cross_scan_fwd.launches``; it raises on
+    anything the kernel does not take. With ``return_carries`` it also
+    returns the state entering each traversal chunk (B, chunks, N, G*Dh), or
+    None with one chunk, which :func:`cross_scan_bwd` starts from. On CPU
+    tensors it runs :func:`cross_scan_ref` (which has no carries)."""
+    if streams[0].device.type == "cuda":
+        y, carries = _cross_scan_fwd_cuda(streams, x_proj_weight, dt_weight,
+                                          dt_bias, A, Ds, reverse)
+        return (y, carries) if return_carries else y
+    if return_carries:
+        raise ValueError("chunk carries come from the CUDA kernel only")
+    return cross_scan_ref(streams, x_proj_weight, dt_weight, dt_bias, A, Ds,
+                          reverse)
+
+
+cross_scan_fwd.launches = 0
+
+
+def _cross_scan_bwd_cuda(streams, x_proj_weight, dt_weight, dt_bias, A, Ds, dy,
+                         reverse, carries):
+    batch, L, G, Dh, R = _check_kernel_inputs(streams, x_proj_weight, dt_weight,
+                                              dt_bias, A, Ds, dy)
+    N = KERNEL_STATE_SIZE
+    dev = streams[0].device
+    chunk = _pick_chunk(batch, L, G * Dh)
+    nchunks = math.ceil(L / chunk)
+    if nchunks > 1:
+        if carries is None:
+            carries = cross_scan_fwd(streams, x_proj_weight, dt_weight, dt_bias,
+                                     A, Ds, reverse, return_carries=True)[1]
+        if (carries.shape != (batch, nchunks, N, G * Dh) or carries.device != dev
+                or carries.dtype != torch.float32 or not carries.is_contiguous()):
+            raise ValueError(f"carries must be the forward kernel's, a contiguous "
+                             f"float32 ({batch}, {nchunks}, {N}, {G * Dh}) on "
+                             f"{dev}, got {tuple(carries.shape)}")
+    fn, nsub = _bwd_kernel_fns()
+    C = R + 2 * N
+    empty = lambda *shape: torch.empty(*shape, device=dev)
+    d_streams = [empty(batch, L, Dh) for _ in range(G)]
+    da_part = empty(batch, nchunks, G * Dh, N)
+    dwx_part = empty(batch, nchunks, G, C, Dh)
+    dwdt_part = empty(batch, nchunks, G, Dh, R)
+    dtb_part = empty(batch, nchunks, G, Dh)
+    dds_part = empty(batch, nchunks, G * Dh)
+    ckpt = empty(batch, nchunks, G, nsub(chunk, Dh, R), N, Dh)
+    adj = dsum = None
+    if nchunks > 1:
+        adj = empty(batch, nchunks, N, G * Dh)
+        dsum = empty(batch, nchunks, G * Dh)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*_stream_ptrs(streams), x_proj_weight.data_ptr(),
+                dt_weight.data_ptr(), dt_bias.data_ptr(), A.data_ptr(),
+                Ds.data_ptr(), dy.data_ptr(), ptr(carries if nchunks > 1 else None),
+                ptr(adj), ptr(dsum), ckpt.data_ptr(), *_stream_ptrs(d_streams),
+                da_part.data_ptr(), dwx_part.data_ptr(), dwdt_part.data_ptr(),
+                dtb_part.data_ptr(), dds_part.data_ptr(),
+                batch, L, G, Dh, R, N, chunk, int(reverse), stream)
+    if rc != 0:
+        raise RuntimeError(f"cross_scan_bwd kernel launch failed with CUDA error "
+                           f"{rc}")
+    cross_scan_bwd.launches += 1
+    # the kernel leaves one partial of each weight gradient per (batch,
+    # chunk): the sums over both are taken here
+    return (tuple(d_streams), dwx_part.sum((0, 1)), dwdt_part.sum((0, 1)),
+            dtb_part.sum((0, 1)), da_part.sum((0, 1)), dds_part.sum((0, 1)))
+
+
+def cross_scan_bwd(streams, x_proj_weight, dt_weight, dt_bias, A, Ds, dy,
+                   reverse: bool = False, carries=None):
+    """(d_streams, dWx, dWdt, dbias, dA, dD) of :func:`cross_scan_fwd` for the
+    output gradient ``dy`` (B, L, G*Dh); d_streams is a tuple of G (B, L, Dh).
+
+    On CUDA tensors this launches ``csrc/cross_scan_bwd.cu`` on the current
+    stream and counts the launch in ``cross_scan_bwd.launches``; it raises on
+    anything the kernel does not take. ``carries`` are the forward kernel's
+    for the same inputs; without them the forward kernel runs again to make
+    them. On CPU tensors it runs :func:`cross_scan_bwd_plain`."""
+    if streams[0].device.type == "cuda":
+        return _cross_scan_bwd_cuda(streams, x_proj_weight, dt_weight, dt_bias,
+                                    A, Ds, dy, reverse, carries)
+    return cross_scan_bwd_plain(streams, x_proj_weight, dt_weight, dt_bias, A,
+                                Ds, dy, reverse)
+
+
+cross_scan_bwd.launches = 0
+
+
+class _CrossScan(torch.autograd.Function):
+    """:func:`cross_scan_fwd` with :func:`cross_scan_bwd` as its gradient; the
+    forward kernel's chunk carries go to the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, reverse, x_proj_weight, dt_weight, dt_bias, A, Ds, *streams):
+        weights = (x_proj_weight, dt_weight, dt_bias, A, Ds)
+        if streams[0].device.type == "cuda":
+            y, carries = _cross_scan_fwd_cuda(streams, *weights, reverse)
+        else:
+            y, carries = cross_scan_ref(streams, *weights, reverse), None
+        ctx.reverse = reverse
+        ctx.save_for_backward(*weights, carries, *streams)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        weights, carries, streams = saved[:5], saved[5], saved[6:]
+        d_streams, *d_weights = cross_scan_bwd(streams, *weights, dy.contiguous(),
+                                               ctx.reverse, carries)
+        return (None, *d_weights, *d_streams)
+
+
+class _CrossScanPlainPair(torch.autograd.Function):
+    """:func:`cross_scan_ref` with :func:`cross_scan_bwd_plain` as its
+    gradient, on any device and in the inputs' dtype."""
+
+    @staticmethod
+    def forward(ctx, reverse, x_proj_weight, dt_weight, dt_bias, A, Ds, *streams):
+        weights = (x_proj_weight, dt_weight, dt_bias, A, Ds)
+        ctx.reverse = reverse
+        ctx.save_for_backward(*weights, *streams)
+        return cross_scan_ref(streams, *weights, reverse)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        weights, streams = ctx.saved_tensors[:5], ctx.saved_tensors[5:]
+        d_streams, *d_weights = cross_scan_bwd_plain(streams, *weights, dy,
+                                                     ctx.reverse)
+        return (None, *d_weights, *d_streams)
+
+
+def cross_scan_fused(streams: Sequence[torch.Tensor], x_proj_weight, dt_weight,
+                     dt_bias, A, Ds, reverse: bool = False,
+                     backend: Optional[str] = None) -> torch.Tensor:
+    """Fused projections and selective scan over the G directions of one
+    traversal orientation, with the shapes of the JAX package's function.
+
+    streams: G tensors (B, L, Dh), always the FORWARD sequences;
+    ``reverse=True`` scans them back to front. x_proj_weight (G, R+2N, Dh);
+    dt_weight (G, Dh, R); dt_bias (G, Dh); A (G*Dh, N) already negated; Ds
+    (G*Dh,). Returns y (B, L, G*Dh) in natural order (direction g in
+    channels [g*Dh, (g+1)*Dh)), ``u * D`` included.
+
+    ``backend`` None: the kernels on the card forwards and backwards (their
+    plain versions on the CPU); "plain": autograd through
+    :func:`cross_scan_ref`; "plain_pair": :func:`cross_scan_ref` with
+    :func:`cross_scan_bwd_plain` as its gradient, which keeps the inputs only
+    and so fits a whole training step."""
+    streams = [s.contiguous() for s in streams]
+    weights = [t.contiguous() for t in (x_proj_weight, dt_weight, dt_bias, A, Ds)]
+    if backend is None:
+        return _CrossScan.apply(reverse, *weights, *streams)
+    if backend == "plain":
+        return cross_scan_ref(streams, *weights, reverse)
+    if backend == "plain_pair":
+        return _CrossScanPlainPair.apply(reverse, *weights, *streams)
+    raise ValueError(f"unknown scan backend {backend!r}")

@@ -82,6 +82,38 @@ def test_ss2d():
     _compare(jss2d.SS2D(16), tss2d.SS2D(16), _x(7, 2, 6, 5, 16), train=False)
 
 
+def test_ss2d_fused_glue_matches_jax_fused_glue(monkeypatch):
+    """The fused cross-scan glue against the JAX SS2D with its fused glue
+    (the Pallas kernels in interpret mode), d_model 16 and d_state 16: the
+    output to 1e-4 of its max; the gradients of the input and of every
+    parameter, sums over the batch and the map in other orders, to 1e-3 of
+    each one's max."""
+    from nnuzoo_tpu_torch.convert import convert_params
+    x, dy = _x(13, 2, 6, 5, 16), _x(14, 2, 6, 5, 16)
+    jmod = jss2d.SS2D(16, d_state=16)
+    params = random_flax_params(jmod, jnp.asarray(x), train=False)
+    tmod = load_converted(tss2d.SS2D(16, d_state=16), params)
+    tss2d.set_ss2d_glue(tmod, "fused")
+    monkeypatch.setenv("NNUZOO_SS2D_FUSED", "interpret")
+    want, vjp = jax.vjp(lambda p, x: jmod.apply(p, x, train=False), params,
+                        jnp.asarray(x))
+    want_p, want_x = vjp(jnp.asarray(dy))
+    want_p = convert_params(want_p, tmod)
+
+    xt = torch.from_numpy(x).requires_grad_()
+    names = [n for n, _ in tmod.named_parameters()]
+    got = tmod(xt)
+    grads = torch.autograd.grad(got, [xt] + list(tmod.parameters()),
+                                torch.from_numpy(dy))
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                               atol=1e-4 * float(np.abs(want).max()))
+    for name, g, w in zip(["input"] + names, grads,
+                          [np.asarray(want_x)] + [want_p[n].numpy() for n in names]):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-3 * float(np.abs(w).max()), err_msg=name)
+
+
 def test_vss_block():
     _compare(jss2d.VSSBlock(16), tss2d.VSSBlock(16), _x(8, 2, 5, 7, 16),
              train=False)

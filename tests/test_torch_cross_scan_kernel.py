@@ -1,0 +1,266 @@
+"""The wrappers of the fused cross-scan CUDA kernels (``cross_scan_fwd``,
+``cross_scan_bwd`` and the two as one differentiable ``cross_scan_fused``).
+
+This file imports no JAX, so its ``cuda`` tests also run on a machine with
+the GPU and no JAX, where the repository's ``conftest.py`` cannot load:
+
+    python -m pytest --noconftest -q tests/test_torch_cross_scan_kernel.py
+
+On the CPU the ``cuda`` tests skip; the others check what the wrappers do
+before a launch, that a CPU tensor runs the plain versions, and how the
+SS2D glue is chosen.
+"""
+
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from nnuzoo_tpu_torch.models import ss2d as tss2d  # noqa: E402
+from nnuzoo_tpu_torch.ops import cross_scan as tcs  # noqa: E402
+from nnuzoo_tpu_torch.ops.selective_scan import _pick_chunk  # noqa: E402
+
+NAMES = ("d_streams", "dWx", "dWdt", "dbias", "dA", "dD")
+
+
+def _inputs(device, B, L, G, Dh, R, seed, N=16):
+    """Seeded (streams, wx, wdt, dtb, A, Ds) in the model's regime: delta
+    around softplus(-3) = 0.05, A near -(1..N), D near 1."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, device=device, generator=g)
+    streams = [rnd(B, L, Dh) for _ in range(G)]
+    wx = rnd(G, R + 2 * N, Dh) / math.sqrt(Dh)
+    wdt = 0.5 * rnd(G, Dh, R) / math.sqrt(R)
+    dtb = -3.0 + 0.5 * rnd(G, Dh)
+    A = -torch.arange(1, N + 1, device=device).float() * torch.exp(0.1 * rnd(G * Dh, N))
+    Ds = 1.0 + 0.1 * rnd(G * Dh)
+    return streams, wx, wdt, dtb, A, Ds
+
+
+def _flat(grads):
+    d_streams, *weights = grads
+    return [torch.cat(list(d_streams), -1), *weights]
+
+
+def test_cpu_runs_plain_versions_and_counts_no_launch():
+    streams, *w = _inputs("cpu", 2, 40, 2, 32, 1, seed=1)
+    dy = torch.randn(2, 40, 64, generator=torch.Generator().manual_seed(2))
+    before = tcs.cross_scan_fwd.launches, tcs.cross_scan_bwd.launches
+    for reverse in (False, True):
+        y = tcs.cross_scan_fwd(streams, *w, reverse)
+        assert torch.equal(y, tcs.cross_scan_ref(streams, *w, reverse))
+        got = tcs.cross_scan_bwd(streams, *w, dy, reverse)
+        leaves = [t.clone().requires_grad_() for t in (*streams, *w)]
+        want = torch.autograd.grad(tcs.cross_scan_ref(leaves[:2], *leaves[2:], reverse),
+                                   leaves, dy)
+        want = [torch.cat(want[:2], -1), *want[2:]]
+        for name, a, b in zip(NAMES, _flat(got), want):
+            assert a.shape == b.shape, name
+            assert (a - b).abs().max() <= 1e-5 * b.abs().max(), name
+    assert (tcs.cross_scan_fwd.launches, tcs.cross_scan_bwd.launches) == before
+    with pytest.raises(ValueError, match="CUDA kernel only"):
+        tcs.cross_scan_fwd(streams, *w, return_carries=True)
+    with pytest.raises(ValueError, match="unknown scan backend"):
+        tcs.cross_scan_fused(streams, *w, backend="pallas")
+
+
+def test_kernel_wrapper_checks_inputs():
+    """The checks the CUDA wrappers make before a launch (they read shapes,
+    types and strides only, so they run here)."""
+    streams, *w = _inputs("cpu", 2, 20, 2, 32, 1, seed=3)
+    check = tcs._check_kernel_inputs
+    assert check(streams, *w) == (2, 20, 2, 32, 1)
+    assert check(streams, *w, dy=torch.zeros(2, 20, 64)) == (2, 20, 2, 32, 1)
+    s3, *w3 = _inputs("cpu", 1, 9, 3, 64, 8, seed=4)
+    assert check(s3, *w3) == (1, 9, 3, 64, 8)
+    with pytest.raises(ValueError, match="G in"):
+        check(streams[:1], w[0][:1], w[1][:1], w[2][:1], w[3][:32], w[4][:32])
+    with pytest.raises(TypeError, match="float32"):
+        check([s.double() for s in streams], *w)
+    with pytest.raises(ValueError, match="contiguous"):
+        check([streams[0].transpose(0, 1), streams[1]], *w)
+    with pytest.raises(ValueError, match="dy must be"):
+        check(streams, *w, dy=torch.zeros(2, 20, 32))
+    s16, *w16 = _inputs("cpu", 2, 20, 2, 16, 1, seed=5)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        check(s16, *w16)
+    s8, *w8 = _inputs("cpu", 2, 20, 2, 32, 1, seed=6, N=8)
+    with pytest.raises(ValueError, match="N=16 only"):
+        check(s8, *w8)
+    s9, *w9 = _inputs("cpu", 2, 20, 2, 32, 9, seed=7)
+    with pytest.raises(ValueError, match="R in 1..8"):
+        check(s9, *w9)
+
+
+def test_glue_is_read_when_the_ss2d_is_built(monkeypatch):
+    monkeypatch.delenv("NNUZOO_SS2D_FUSED", raising=False)
+    assert tss2d.SS2D(16).glue == "default"
+    monkeypatch.setenv("NNUZOO_SS2D_FUSED", "0")
+    assert tss2d.SS2D(16).glue == "default"
+    monkeypatch.setenv("NNUZOO_SS2D_FUSED", "1")
+    block = tss2d.VSSBlock(16)
+    assert block.self_attention.glue == "fused"
+    tss2d.set_ss2d_glue(block, "default")
+    assert block.self_attention.glue == "default"
+    with pytest.raises(ValueError, match="glue must be"):
+        tss2d.set_ss2d_glue(block, "packed")
+    monkeypatch.setenv("NNUZOO_SS2D_FUSED", "interpret")
+    with pytest.raises(ValueError, match="NNUZOO_SS2D_FUSED"):
+        tss2d.SS2D(16)
+
+
+def test_fused_glue_goes_through_cross_scan_fused(monkeypatch):
+    """The fused SS2D makes two cross-scan calls, forwards and reversed, and
+    no selective-scan call; on the CPU it equals the default glue."""
+    from nnuzoo_tpu_torch.models.layers import init_parameters
+    calls = []
+    inner = tss2d.cross_scan_fused
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs["reverse"])
+        return inner(*args, **kwargs)
+
+    def no_blkd(*args, **kwargs):
+        raise AssertionError("the fused glue called selective_scan_blkd")
+
+    module = tss2d.SS2D(16)
+    init_parameters(module, torch.Generator().manual_seed(0))
+    x = torch.randn(2, 5, 6, 16, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = module(x)
+        tss2d.set_ss2d_glue(module, "fused")
+        monkeypatch.setattr(tss2d, "cross_scan_fused", spy)
+        monkeypatch.setattr(tss2d, "selective_scan_blkd", no_blkd)
+        got = module(x)
+    assert calls == [False, True]
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the cross-scan kernels are CUDA C++ "
+                    "with no CPU mode")
+    return torch.device("cuda")
+
+
+# (B, L, G, Dh, R): one chunk shorter than a tile; two chunks; a ragged last
+# chunk and tile; G=3 with Dh=64 and R=2; M2Net's width; a long level
+CUDA_CASES = [(2, 12, 2, 32, 1), (2, 56, 2, 32, 1), (2, 1000, 2, 32, 1),
+              (2, 301, 3, 64, 2), (2, 56, 2, 256, 8), (4, 3584, 2, 32, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B,L,G,Dh,R", CUDA_CASES)
+def test_cuda_forward_kernel_matches_plain_version(cuda_device, B, L, G, Dh, R,
+                                                   reverse):
+    """K3 against the plain forward in fp64 on the same inputs; fp32 with
+    exp2 and another order of the sums, so 1e-4 * max|y|."""
+    streams, *w = _inputs(cuda_device, B, L, G, Dh, R, seed=L + G)
+    before = tcs.cross_scan_fwd.launches
+    with torch.inference_mode():
+        y = tcs.cross_scan_fwd(streams, *w, reverse)
+        torch.cuda.synchronize()
+        want = tcs.cross_scan_ref([s.double() for s in streams],
+                                  *(t.double() for t in w), reverse)
+    assert tcs.cross_scan_fwd.launches == before + 1
+    assert y.shape == (B, L, G * Dh)
+    assert (y - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B,L,G,Dh,R", CUDA_CASES)
+def test_cuda_backward_kernel_matches_plain_version(cuda_device, B, L, G, Dh, R,
+                                                    reverse):
+    """K4 (from K3's carries) against the plain backward in fp64: d_streams
+    to 1e-4 of its max, the weight gradients, sums over B*L positions in
+    another order, to 1e-3 of each one's max."""
+    streams, *w = _inputs(cuda_device, B, L, G, Dh, R, seed=L + G)
+    dy = torch.randn(B, L, G * Dh, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device).manual_seed(L))
+    before = tcs.cross_scan_bwd.launches
+    with torch.inference_mode():
+        _, carries = tcs.cross_scan_fwd(streams, *w, reverse, return_carries=True)
+        got = tcs.cross_scan_bwd(streams, *w, dy, reverse, carries)
+        torch.cuda.synchronize()
+    assert tcs.cross_scan_bwd.launches == before + 1
+    want = tcs.cross_scan_bwd_plain([s.double() for s in streams],
+                                    *(t.double() for t in w), dy.double(), reverse)
+    for name, a, b in zip(NAMES, _flat(got), _flat(want)):
+        assert a.shape == b.shape, name
+        tol = 1e-4 if name == "d_streams" else 1e-3
+        err = (a.double() - b).abs().max().item()
+        assert err <= tol * b.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_carries_are_the_traversal_chunk_entry_states(cuda_device, reverse):
+    """The state entering traversal chunk i is the state after the first
+    i*chunk steps of the traversal: with ``reverse`` the state of the scan
+    over the LAST i*chunk positions, which the plain forward of those
+    positions gives (its state is read through C = one-hot rows)."""
+    B, L, G, Dh, R = 1, 700, 2, 32, 1
+    streams, *w = _inputs(cuda_device, B, L, G, Dh, R, seed=11)
+    with torch.inference_mode():
+        _, carries = tcs.cross_scan_fwd(streams, *w, reverse, return_carries=True)
+    torch.cuda.synchronize()
+    chunk = _pick_chunk(B, L, G * Dh)
+    assert carries.shape == (B, -(-L // chunk), 16, G * Dh)
+    assert torch.equal(carries[:, 0], torch.zeros_like(carries[:, 0]))
+    from nnuzoo_tpu_torch.ops.selective_scan import selective_scan_ref
+    wx, wdt, dtb, A, Ds = (t.double() for t in w)
+    for i in range(1, carries.shape[1]):
+        t = i * chunk
+        for g in range(G):
+            u = streams[g].double()
+            u = u.flip(1)[:, :t] if reverse else u[:, :t]
+            x_dbl = u @ wx[g].t()
+            dt = x_dbl[..., :R] @ wdt[g].t()
+            Bm, Cm = x_dbl[..., R:R + 16], x_dbl[..., R + 16:]
+            _, h = selective_scan_ref(
+                u.transpose(1, 2), dt.transpose(1, 2), A[g * Dh:(g + 1) * Dh],
+                Bm.transpose(1, 2), Cm.transpose(1, 2), delta_bias=dtb[g],
+                delta_softplus=True, return_last_state=True)     # (B, Dh, N)
+            got = carries[:, i, :, g * Dh:(g + 1) * Dh].transpose(1, 2)
+            err = (got.double() - h).abs().max().item()
+            assert err <= 1e-4 * h.abs().max().item(), (i, g, err)
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_function_runs_both_kernels(cuda_device):
+    """``cross_scan_fused`` on the card: one forward and one backward launch
+    (the forward's carries reused), gradients as autograd's through the plain
+    forward in fp64."""
+    B, L, G, Dh, R = 2, 900, 2, 32, 1
+    streams, *w = _inputs(cuda_device, B, L, G, Dh, R, seed=12)
+    dy = torch.randn(B, L, G * Dh, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device).manual_seed(13))
+    for reverse in (False, True):
+        before = tcs.cross_scan_fwd.launches, tcs.cross_scan_bwd.launches
+        leaves = [t.clone().requires_grad_() for t in (*streams, *w)]
+        got = torch.autograd.grad(
+            tcs.cross_scan_fused(leaves[:G], *leaves[G:], reverse), leaves, dy)
+        torch.cuda.synchronize()
+        assert (tcs.cross_scan_fwd.launches, tcs.cross_scan_bwd.launches) == (
+            before[0] + 1, before[1] + 1)
+        leaves = [t.double().requires_grad_() for t in (*streams, *w)]
+        want = torch.autograd.grad(
+            tcs.cross_scan_ref(leaves[:G], *leaves[G:], reverse), leaves,
+            dy.double())
+        for k, (a, b) in enumerate(zip(got, want)):
+            tol = 1e-4 if k < G else 1e-3
+            assert (a.double() - b).abs().max().item() <= \
+                tol * b.abs().max().item(), (reverse, k)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    streams, *w = _inputs(cuda_device, 1, 40, 2, 16, 1, seed=2)     # Dh = 16
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tcs.cross_scan_fwd(streams, *w)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tcs.cross_scan_bwd(streams, *w, torch.zeros(1, 40, 32, device=cuda_device))

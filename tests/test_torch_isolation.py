@@ -25,7 +25,8 @@ print(len(names), bad)
 for wanted in ("training.trainer", "training.losses", "training.schedulers",
                "training.trainer_config", "training.logger", "data.augment",
                "data.dataset", "data.patch_sampler", "data.loader",
-               "run.run_training"):
+               "run.run_training", "ops.cross_scan", "ops.selective_scan",
+               "models.ss2d"):
     assert "nnuzoo_tpu_torch." + wanted in names, wanted
 """
 

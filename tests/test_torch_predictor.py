@@ -120,6 +120,26 @@ def test_segmentation_identical_to_jax(predictors):
                                     segmentation_previous_stage=got[0])
 
 
+def test_segmentation_with_the_fused_glue_identical_to_jax(predictors):
+    """With the fused cross-scan glue in every SS2D of the port's model, the
+    segmentation is the JAX package's (default glue: the two glues compute
+    the same function) and the probabilities agree to 1e-3."""
+    from nnuzoo_tpu_torch.models.ss2d import SS2D, set_ss2d_glue
+    jp, tp = predictors
+    want, want_prob = jp.predict_single_npy_array(
+        _volume(), dict(PROPS), save_or_return_probabilities=True)
+    set_ss2d_glue(tp.model, "fused")
+    try:
+        assert {m.glue for m in tp.model.modules() if isinstance(m, SS2D)} == \
+            {"fused"}
+        got, got_prob = tp.predict_single_npy_array(
+            _volume(), dict(PROPS), save_or_return_probabilities=True)
+    finally:
+        set_ss2d_glue(tp.model, "default")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got_prob, want_prob, rtol=0, atol=1e-3)
+
+
 def test_single_slice_and_short_last_batch(predictors):
     """A volume whose tile count is not a multiple of the tile batch (the
     last batch runs short) and that needs padding (20x30 < patch)."""

@@ -5,8 +5,9 @@ off on both sides (the JAX model is applied without a dropout rng, the port's
 rates are set to 0) and no augmentation: the same deep-supervision loss, the
 same gradient of every parameter and the same parameters after the clip at
 12 and one AdamW update as ``optax`` gives. fp32 on the CPU on both sides;
-the tolerances are stated at each comparison. ``remat=True`` must give the
-gradients of ``remat=False``, DropPath live.
+the tolerances are stated at each comparison. The same holds with the
+fused cross-scan glue on both sides. ``remat=True`` must give the gradients
+of ``remat=False``, DropPath live, with either glue.
 """
 
 import functools
@@ -84,6 +85,25 @@ def _batch(seed):
 
 
 def test_step_matches_the_optax_step(trainer):
+    _check_step_against_optax(trainer)
+
+
+def test_fused_step_matches_the_optax_step(trainer, monkeypatch):
+    """The same step with the fused cross-scan glue in every SS2D, against
+    the JAX step with its default glue, tolerances as above. The two glues
+    compute the same function (``tests/test_cross_scan.py``); the JAX step
+    with its fused glue in interpret mode (``NNUZOO_SS2D_FUSED=interpret``)
+    takes 75 s on a CPU, and its fp32 gradients differ from its own
+    default glue's by up to 5x the tolerance in the decoder's first conv, so
+    the default glue is the reference. ``test_torch_cross_scan.py`` holds
+    the fused function against the JAX Pallas pair itself."""
+    from nnuzoo_tpu_torch.models.ss2d import set_ss2d_glue
+    set_ss2d_glue(trainer.model, "fused")
+    monkeypatch.setenv("NNUZOO_SS2D_FUSED", "0")
+    _check_step_against_optax(trainer)
+
+
+def _check_step_against_optax(trainer):
     cfg = trainer.config
     assert (cfg.optimizer, cfg.initial_lr, cfg.weight_decay, cfg.adam_eps,
             cfg.grad_clip_norm) == ("adamw", 1e-4, 5e-2, 1e-5, 12.0)
@@ -234,6 +254,17 @@ def test_remat_gives_the_same_gradients_with_droppath_live():
     """``remat=True`` runs stages 1, 2, 2d, 1d again in the backward pass; the
     second run must draw the DropPath masks of the first, from the modules'
     own generator, and leave the generator where the forward pass left it."""
+    _check_remat("default")
+
+
+def test_remat_gives_the_same_gradients_with_the_fused_glue():
+    """As above with the fused cross-scan glue, whose forward runs again in
+    the recomputation."""
+    _check_remat("fused")
+
+
+def _check_remat(glue):
+    from nnuzoo_tpu_torch.models.ss2d import set_ss2d_glue
     x = torch.from_numpy(np.random.RandomState(4).randn(4, 32, 32, 1)
                          .astype(np.float32))
     grads, states = {}, {}
@@ -242,6 +273,7 @@ def test_remat_gives_the_same_gradients_with_droppath_live():
         from nnuzoo_tpu_torch.models.layers import init_parameters, \
             set_drop_path_generator
         init_parameters(model, torch.Generator().manual_seed(5))
+        set_ss2d_glue(model, glue)
         gen = torch.Generator().manual_seed(6)
         set_drop_path_generator(model, gen)
         for m in model.modules():
