@@ -9,7 +9,8 @@ Phases, one line each (a failure anywhere exits non-zero):
   2. the selective-scan forward kernel against its plain PyTorch version at
      every scan shape of the main paths (batch 4 as serving runs it, batch 12
      as training does), and the backward kernel against its plain version
-     at batch 12, with errors, times and bounds;
+     at batch 12, each also at L=12, at K*Dh=1024 and on steep-decay inputs
+     (delta up to 4, A down to -16), with errors, times and bounds;
   3. one SS2D (forward, and backward for the input and every parameter) and
      one MU at stage-1 width and 256x224, kernel path against plain path;
   4. serving end to end: M2NetP at full width and depth (7, 6, 5, 4), seeded
@@ -209,15 +210,21 @@ def scan_bwd_bound(batch, L, kd, n, k):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def scan_inputs(batch, L, kd, n, k, seed):
+def scan_inputs(batch, L, kd, n, k, seed, steep=False):
     """Seeded inputs in the model's regime: delta in [0.001, 0.1] (the dt
-    initialisation), A = -(1..N) (S4D real), unit-normal u, B/C and dy."""
+    initialisation), A = -(1..N) (S4D real), unit-normal u, B/C and dy.
+    ``steep``: delta in [0, 4] and A in [-16, 0), where a step's decay
+    reaches e^-64 and a decay across many steps underflows."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     u = torch.randn(batch, L, kd, device="cuda", generator=g)
-    delta = 0.001 + 0.099 * torch.rand(batch, L, kd, device="cuda", generator=g)
-    A_t = -torch.arange(1, n + 1, device="cuda", dtype=torch.float32)[:, None]
-    A_t = A_t.expand(n, kd).contiguous()
+    if steep:
+        delta = 4.0 * torch.rand(batch, L, kd, device="cuda", generator=g)
+        A_t = -16.0 * torch.rand(n, kd, device="cuda", generator=g) - 1e-3
+    else:
+        delta = 0.001 + 0.099 * torch.rand(batch, L, kd, device="cuda", generator=g)
+        A_t = -torch.arange(1, n + 1, device="cuda", dtype=torch.float32)[:, None]
+        A_t = A_t.expand(n, kd).contiguous()
     bc = torch.randn(batch, L, k * 2 * n, device="cuda", generator=g)
     dy = torch.randn(batch, L, kd, device="cuda", generator=g)
     return (u, delta, A_t, bc), dy
@@ -229,11 +236,14 @@ def phase_scan_kernels():
     import torch
     from nnuzoo_tpu_torch.ops.selective_scan import (
         scan_core, scan_core_bwd, scan_core_bwd_plain, scan_core_plain)
-    shapes = [(L, KD) for L, _ in PATH_SHAPES] + [(12, KD), (56, 1024)]
+    # the path's lengths, L=12, K*Dh=1024 and steep decay (off the path:
+    # its L is none of the path's)
+    shapes = [(L, KD, False) for L, _ in PATH_SHAPES] + [
+        (12, KD, False), (56, 1024, False), (3000, KD, True)]
     fwd_rows, bwd_rows = [], []
-    for i, (L, kd) in enumerate(shapes):
+    for i, (L, kd, steep) in enumerate(shapes):
         for b in (TILE_BATCH, TRAIN_BATCH):
-            args, dy = scan_inputs(b, L, kd, N_STATE, K_DIRS, seed=i)
+            args, dy = scan_inputs(b, L, kd, N_STATE, K_DIRS, seed=i, steep=steep)
             with torch.inference_mode():
                 y, carries = scan_core(*args, return_carries=True)
                 want = scan_core_plain(*args)
@@ -243,7 +253,7 @@ def phase_scan_kernels():
                 ms = time_ms(lambda: scan_core(*args), reps=20)
                 plain_ms = time_ms(lambda: scan_core_plain(*args), reps=2, warmup=1)
             bound_ms, bound_by = scan_bound(b, L, kd, N_STATE, K_DIRS)
-            row = dict(B=b, L=L, KD=kd, N=N_STATE, max_abs_err=err,
+            row = dict(B=b, L=L, KD=kd, N=N_STATE, steep=steep, max_abs_err=err,
                        rel_err=err / scale, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
             emit("scan_kernel", **row)
@@ -267,7 +277,7 @@ def phase_scan_kernels():
                                    reps=1, warmup=1)
             del got, want
             bound_ms, bound_by = scan_bwd_bound(b, L, kd, N_STATE, K_DIRS)
-            row = dict(B=b, L=L, KD=kd, N=N_STATE,
+            row = dict(B=b, L=L, KD=kd, N=N_STATE, steep=steep,
                        max_abs_err=max(e for e, _ in errs.values()),
                        rel_err={k: e / m for k, (e, m) in errs.items()},
                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -633,14 +643,16 @@ def kernel_ms(kernels, *names, exclude=()):
                and not any(x in e.key for x in exclude)) / 1e3
 
 
-# kernel-name fragments of the scan kernels in a profile: K1, K2, K3 (its
-# passes and the carry pass that K3 and K4 share), K4
+# kernel-name fragments of the scan kernels in a profile, and the fragments
+# that exclude a name: K1, K2 (passes A, B, C), K3 (its passes; K2's pass A
+# also ends in "chunk_kernel<"), K4, and the carry pass that K3 and K4 share
 SCAN_KERNEL_NAMES = {
     "k1": (("scan_chunk_kernel", "chunk_carry_kernel"), ()),
-    "k2": (("adjoint_chunk_kernel", "adjoint_carry_kernel", "grad_chunk_kernel"),
-           ("cross_scan",)),
-    "k3": (("chunk_kernel<",), ("scan_chunk", "adjoint_chunk", "grad_chunk")),
-    "k4": (("adjoint_chunk_kernel<", "grad_chunk_kernel<"), ("<16>",)),
+    "k2": (("forward_chunk_kernel", "adjoint_carry_kernel", "grad_tile_kernel"),
+           ()),
+    "k3": (("chunk_kernel<",),
+           ("scan_chunk", "forward_chunk", "adjoint_chunk", "grad_chunk")),
+    "k4": (("adjoint_chunk_kernel<", "grad_chunk_kernel<"), ()),
     "k3_k4_carry": (("cross_scan::carry_kernel",), ()),
 }
 

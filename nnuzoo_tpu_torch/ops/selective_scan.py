@@ -342,6 +342,29 @@ def scan_core(u, delta, A_t, bc, return_carries: bool = False):
 scan_core.launches = 0
 
 
+def _bwd_scratch_layout(batch, nchunks, nsub, N, KD):
+    """The backward kernel's scratch as one float32 allocation: ({name:
+    (offset, shape)}, total floats). ``da_part`` (dA per batch and chunk)
+    comes first, then ``ckpt`` (the state every few steps) and, with more
+    than one chunk, ``adj`` (chunk adjoints) and ``dsum``; every piece starts
+    on a 16-byte boundary."""
+    parts = [("da_part", (batch, nchunks, N, KD)),
+             ("ckpt", (batch, nchunks, nsub, N, KD))]
+    if nchunks > 1:
+        parts += [("adj", (batch, nchunks, N, KD)), ("dsum", (batch, nchunks, KD))]
+    layout, off = {}, 0
+    for name, shape in parts:
+        layout[name] = (off, shape)
+        off += -(-math.prod(shape) // 4) * 4
+    return layout, off
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its data does not start on a 16-byte
+    boundary (the kernel copies rows 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _scan_core_bwd_cuda(u, delta, A_t, bc, dy, carries):
     batch, L, KD, K, N = _check_kernel_inputs(u, delta, A_t, bc, dy=dy)
     Dh = KD // K
@@ -359,22 +382,21 @@ def _scan_core_bwd_cuda(u, delta, A_t, bc, dy, carries):
                              f"float32 ({batch}, {nchunks}, {N}, {KD}) on "
                              f"{u.device}, got {tuple(carries.shape)}")
     fn, nsub = _bwd_kernel_fns()
-    dev = u.device
+    u, delta, dy = _aligned(u), _aligned(delta), _aligned(dy)
     du, ddelta = torch.empty_like(u), torch.empty_like(u)
-    dbc_part = torch.empty(batch, L, KD // 32, 2 * N, device=dev)
-    da_part = torch.empty(batch, nchunks, N, KD, device=dev)
-    ckpt = torch.empty(batch, nchunks, nsub(chunk), N, KD, device=dev)
-    adj = dsum = None
-    if nchunks > 1:
-        adj = torch.empty(batch, nchunks, N, KD, device=dev)
-        dsum = torch.empty(batch, nchunks, KD, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    dbc_part = torch.empty(batch, L, KD // 32, 2 * N, device=u.device)
+    # the scratch is handed to the kernel as pointers into one allocation;
+    # only the dA partials become a tensor
+    layout, total = _bwd_scratch_layout(batch, nchunks, nsub(chunk), N, KD)
+    scratch = torch.empty(total, device=u.device)
+    base = scratch.data_ptr()
+    ptr = {name: base + 4 * off for name, (off, _) in layout.items()}
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
         rc = fn(u.data_ptr(), delta.data_ptr(), A_t.data_ptr(), bc.data_ptr(),
                 dy.data_ptr(), carries.data_ptr() if nchunks > 1 else None,
                 du.data_ptr(), ddelta.data_ptr(), dbc_part.data_ptr(),
-                da_part.data_ptr(), adj.data_ptr() if adj is not None else None,
-                dsum.data_ptr() if dsum is not None else None, ckpt.data_ptr(),
+                ptr["da_part"], ptr.get("adj"), ptr.get("dsum"), ptr["ckpt"],
                 batch, L, K, Dh, N, chunk, stream)
     if rc != 0:
         raise RuntimeError(f"selective_scan_bwd kernel launch failed with CUDA "
@@ -384,7 +406,9 @@ def _scan_core_bwd_cuda(u, delta, A_t, bc, dy, carries):
     # sum per (batch, chunk): the rest of each sum is taken here
     dbc = dbc_part.reshape(batch, L, K, Dh // 32, 2 * N)
     dbc = dbc.sum(3) if Dh > 32 else dbc
-    return du, ddelta, dbc.reshape(batch, L, K * 2 * N), da_part.sum((0, 1))
+    da_part = scratch[:math.prod(layout["da_part"][1])]
+    return (du, ddelta, dbc.reshape(batch, L, K * 2 * N),
+            da_part.view(batch * nchunks, N * KD).sum(0).view(N, KD))
 
 
 def scan_core_bwd(u, delta, A_t, bc, dy, carries=None):

@@ -10,6 +10,8 @@ On the CPU the ``cuda`` tests skip; the others check what the wrapper does
 before a launch and that a CPU tensor runs the plain version.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -176,6 +178,16 @@ def _grad_errors(got, want):
     (2, 1000, 96, 3),       # L no multiple of the chunk, KD no multiple of 128
     (1, 301, 32, 1),        # a ragged last chunk and last sub-chunk
     (12, 3584, 128, 4),
+    # the backward's tiles (and stored states) are 4 steps
+    (2, 3, 128, 4),         # one chunk shorter than a tile
+    (2, 4, 128, 4),         # one chunk of one tile
+    (2, 5, 128, 4),         # a tile and one step
+    (2, 7, 128, 4),         # two tiles short of one step
+    (2, 9, 128, 4),         # two tiles and one step
+    (2, 92, 128, 4),        # chunks of 31, a step short of 8 tiles, last 30
+    (2, 97, 128, 4),        # chunks of 25, a step past 6 tiles, last 22
+    (1, 1, 128, 4),         # one chunk of one step
+    (2, 333, 1024, 4),      # K*Dh=1024: eight blocks a (batch, chunk), ragged
 ])
 def test_cuda_backward_kernel_matches_plain_version(cuda_device, B, L, KD, K):
     """On the card: the backward kernel against the plain backward in fp64 on
@@ -219,3 +231,107 @@ def test_cuda_backward_wrapper_raises_on_what_the_kernel_does_not_take(cuda_devi
     args = _contract_inputs(cuda_device, 1, 40, 48, 3, 16, seed=2)   # Dh = 16
     with pytest.raises(ValueError, match="multiple of 32"):
         tscan.scan_core_bwd(*args, torch.zeros_like(args[0]))
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernel_steep_decay(cuda_device):
+    """delta up to 4 and A down to -16: the decay of a step reaches e^-64 and
+    the kernel's running decay across a chunk underflows to zero; held to
+    the plain backward in fp64 as above (1e-4 of each gradient's max)."""
+    B, L, KD, K, N = 2, 1000, 128, 4, 16
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    u = torch.randn(B, L, KD, device=cuda_device, generator=g)
+    d = 4.0 * torch.rand(B, L, KD, device=cuda_device, generator=g)
+    A_t = -16.0 * torch.rand(N, KD, device=cuda_device, generator=g) - 1e-3
+    bc = torch.randn(B, L, K * 2 * N, device=cuda_device, generator=g)
+    dy = torch.randn(B, L, KD, device=cuda_device, generator=g)
+    args = (u, d, A_t, bc)
+    got = tscan.scan_core_bwd(*args, dy)
+    torch.cuda.synchronize()
+    want = tscan.scan_core_bwd_plain(*(a.double() for a in args), dy.double())
+    for name, (err, scale) in _grad_errors(got, want).items():
+        assert err <= 1e-4 * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernel_is_deterministic(cuda_device):
+    """No atomics: two calls on the same inputs give the same bits."""
+    B, L, KD, K = 12, 3584, 128, 4
+    args = _contract_inputs(cuda_device, B, L, KD, K, 16, seed=33)
+    dy = torch.randn(B, L, KD, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device).manual_seed(34))
+    first = tscan.scan_core_bwd(*args, dy)
+    second = tscan.scan_core_bwd(*args, dy)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("du", "ddelta", "dbc", "dA"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("B,nchunks,nsub,KD", [
+    (12, 88, 82, 128), (2, 1, 2, 96), (1, 1, 1, 32), (3, 5, 3, 1024)])
+def test_backward_scratch_layout(B, nchunks, nsub, KD):
+    """The wrapper's one scratch allocation: each piece holds its shape,
+    starts on a 16-byte boundary and overlaps no other, the dA partials
+    first; the chunk adjoints are there only with more than one chunk."""
+    N = 16
+    layout, total = tscan._bwd_scratch_layout(B, nchunks, nsub, N, KD)
+    assert set(layout) == ({"da_part", "ckpt", "adj", "dsum"} if nchunks > 1
+                           else {"da_part", "ckpt"})
+    assert layout["da_part"] == (0, (B, nchunks, N, KD))
+    assert layout["ckpt"][1] == (B, nchunks, nsub, N, KD)
+    spans = sorted((off, off + math.prod(shape)) for off, shape in layout.values())
+    assert all(off % 4 == 0 for off, _ in spans)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= total < spans[-1][1] + 4
+
+
+def test_aligned_copies_only_a_misaligned_tensor():
+    t = torch.arange(40, dtype=torch.float32)
+    assert tscan._aligned(t) is t
+    view = t[1:33]
+    fixed = tscan._aligned(view)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, view)
+
+
+# kernel names as the profiler reports them, one per pass of K1-K4
+_PROFILED_KERNELS = {
+    "k1": ["void (anonymous namespace)::scan_chunk_kernel<16, true>(float const*, "
+           "float const*, float const*, float const*, float*, float*, float*, int, "
+           "int, int, int, int)",
+           "(anonymous namespace)::chunk_carry_kernel(float const*, float*, "
+           "float const*, int, int, int, int)"],
+    "k2": ["void (anonymous namespace)::forward_chunk_kernel<16>(float const*, "
+           "float const*, float const*, float const*, float const*, float const*, "
+           "float*, float*, float*, int, int, int, int, int, int)",
+           "(anonymous namespace)::adjoint_carry_kernel(float const*, float*, "
+           "float const*, int, int, int, int)",
+           "void (anonymous namespace)::grad_tile_kernel<16>(float const*, "
+           "float const*, float const*, float const*, float const*, float const*, "
+           "float const*, float*, float*, float*, float*, int, int, int, int, int, int)"],
+    "k3": ["void (anonymous namespace)::chunk_kernel<1, false>(cross_scan::Streams, "
+           "float const*, float const*, float const*, float const*, float*, int)",
+           "void (anonymous namespace)::chunk_kernel<8, true>(cross_scan::Streams, "
+           "float const*, float const*, float const*, float const*, float*, int)"],
+    "k4": ["void (anonymous namespace)::adjoint_chunk_kernel<1>(cross_scan::Streams, "
+           "float const*, float const*, float*, int)",
+           "void (anonymous namespace)::grad_chunk_kernel<8>(cross_scan::Streams, "
+           "float const*, float const*, float*, int)"],
+    "k3_k4_carry": ["void cross_scan::carry_kernel(float const*, float*, "
+                    "float const*, int, int, int)"],
+}
+
+
+def test_profile_kernel_names_split_the_scan_kernels():
+    """chip_smoke.py adds up profiled device time by kernel-name fragments:
+    each pass of K1-K4 must count under its own kernel and no other."""
+    import chip_smoke
+
+    class Event:
+        def __init__(self, key):
+            self.key, self.self_device_time_total = key, 1000.0
+
+    for kernel, names in _PROFILED_KERNELS.items():
+        for name in names:
+            hits = [k for k, (frags, excl) in chip_smoke.SCAN_KERNEL_NAMES.items()
+                    if chip_smoke.kernel_ms([Event(name)], *frags, exclude=excl)]
+            assert hits == [kernel], (name, hits)
