@@ -7,10 +7,12 @@ Phases, one line each (a failure anywhere exits non-zero):
   1. the card's name and power limit; builds every CUDA kernel from
      ``nnuzoo_tpu_torch/csrc`` (one nvcc per source, in parallel);
   2. the selective-scan forward kernel against its plain PyTorch version at
-     every scan shape of the main paths (batch 4 as serving runs it, batch 12
-     as training does), and the backward kernel against its plain version
-     at batch 12, each also at L=12, at K*Dh=1024 and on steep-decay inputs
-     (delta up to 4, A down to -16), with errors, times and bounds;
+     every scan shape of the main paths (batch 4 as serving runs it, timed
+     without carries; batch 12 as training does, timed with them), its y and
+     the carries it writes for the backward, and the backward kernel on those
+     carries against its plain version at batch 12, each also at L=12, at
+     K*Dh=1024 and on steep-decay inputs (delta up to 4, A down to -16), with
+     errors, times and bounds;
   3. one SS2D (forward, and backward for the input and every parameter) and
      one MU at stage-1 width and 256x224, kernel path against plain path;
   4. serving end to end: M2NetP at full width and depth (7, 6, 5, 4), seeded
@@ -235,7 +237,8 @@ def phase_scan_kernels():
     at the training batch: error against the plain version, times, bound."""
     import torch
     from nnuzoo_tpu_torch.ops.selective_scan import (
-        scan_core, scan_core_bwd, scan_core_bwd_plain, scan_core_plain)
+        _pick_chunk, scan_core, scan_core_bwd, scan_core_bwd_plain,
+        scan_core_plain)
     # the path's lengths, L=12, K*Dh=1024 and steep decay (off the path:
     # its L is none of the path's)
     shapes = [(L, KD, False) for L, _ in PATH_SHAPES] + [
@@ -244,24 +247,34 @@ def phase_scan_kernels():
     for i, (L, kd, steep) in enumerate(shapes):
         for b in (TILE_BATCH, TRAIN_BATCH):
             args, dy = scan_inputs(b, L, kd, N_STATE, K_DIRS, seed=i, steep=steep)
+            # serving asks for no carries, training for the backward's
+            train = b == TRAIN_BATCH
             with torch.inference_mode():
                 y, carries = scan_core(*args, return_carries=True)
-                want = scan_core_plain(*args)
+                want, want_carries = scan_core_plain(
+                    *args, chunk=_pick_chunk(b, L, kd), return_carries=True)
                 torch.cuda.synchronize()
                 err = (y - want).abs().max().item()
                 scale = want.abs().max().item()
-                ms = time_ms(lambda: scan_core(*args), reps=20)
+                carries_err = (carries - want_carries).abs().max().item()
+                carries_scale = want_carries.abs().max().item()
+                del want, want_carries
+                ms = time_ms(lambda: scan_core(*args, return_carries=train), reps=20)
                 plain_ms = time_ms(lambda: scan_core_plain(*args), reps=2, warmup=1)
             bound_ms, bound_by = scan_bound(b, L, kd, N_STATE, K_DIRS)
-            row = dict(B=b, L=L, KD=kd, N=N_STATE, steep=steep, max_abs_err=err,
-                       rel_err=err / scale, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+            row = dict(B=b, L=L, KD=kd, N=N_STATE, steep=steep, carries=train,
+                       max_abs_err=err, rel_err=err / scale,
+                       carries_rel_err=carries_err / max(carries_scale, 1e-30),
+                       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
             emit("scan_kernel", **row)
-            if not err <= SCAN_TOL * scale:
+            if not (err <= SCAN_TOL * scale
+                    and carries_err <= SCAN_TOL * carries_scale):
                 raise AssertionError(f"scan kernel disagrees at B={b} L={L} "
-                                     f"KD={kd}: {err} > {SCAN_TOL} * {scale}")
+                                     f"KD={kd}: y {err} against {scale}, carries "
+                                     f"{carries_err} against {carries_scale}")
             fwd_rows.append(row)
-            if b != TRAIN_BATCH:
+            if not train:
                 continue
             # the forward's carries, as the autograd function hands them over
             carries = carries if carries.shape[1] > 1 else None
@@ -644,14 +657,14 @@ def kernel_ms(kernels, *names, exclude=()):
 
 
 # kernel-name fragments of the scan kernels in a profile, and the fragments
-# that exclude a name: K1, K2 (passes A, B, C), K3 (its passes; K2's pass A
-# also ends in "chunk_kernel<"), K4, and the carry pass that K3 and K4 share
+# that exclude a name: K1 (one kernel), K2 (passes A, B, C), K3 (its passes;
+# K2's pass A and K4's passes also end in "chunk_kernel<"), K4, and the carry
+# pass that K3 and K4 share
 SCAN_KERNEL_NAMES = {
-    "k1": (("scan_chunk_kernel", "chunk_carry_kernel"), ()),
+    "k1": (("scan_lookback_kernel",), ()),
     "k2": (("forward_chunk_kernel", "adjoint_carry_kernel", "grad_tile_kernel"),
            ()),
-    "k3": (("chunk_kernel<",),
-           ("scan_chunk", "forward_chunk", "adjoint_chunk", "grad_chunk")),
+    "k3": (("chunk_kernel<",), ("forward_chunk", "adjoint_chunk", "grad_chunk")),
     "k4": (("adjoint_chunk_kernel<", "grad_chunk_kernel<"), ()),
     "k3_k4_carry": (("cross_scan::carry_kernel",), ()),
 }

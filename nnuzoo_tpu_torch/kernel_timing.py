@@ -1,22 +1,28 @@
-"""Times this checkout's selective-scan backward kernel (K2) against the same
-kernel of other checkouts of the package, in one process on one card.
+"""Times this checkout's selective-scan forward (K1) or backward (K2) kernel
+against the same kernel of other checkouts of the package, in one process on
+one card.
 
-    python -m nnuzoo_tpu_torch.kernel_timing --other DIR [--other DIR ...]
+    python -m nnuzoo_tpu_torch.kernel_timing [--kernel fwd|bwd] --other DIR [--other DIR ...]
 
 Each DIR holds a ``nnuzoo_tpu_torch`` package from another commit (for the
 parent: ``git archive <commit> nnuzoo_tpu_torch | tar -x -C DIR``, with DIR
 under the gitignored ``build/``); it is imported under another name and
 builds its own kernels into ``DIR/build/kernels``. The script prints the
 card, each version's ``ptxas -v`` lines, then for every scan length of an
-M2NetP training step at batch 12 (and L=12, and steep decay at L=3584, on
-``chip_smoke.py``'s seeded inputs) each version's error against
-``scan_core_bwd_plain`` and its time in turns (others, this, this, others
-reversed), the host's time to issue a call, each kernel's device time (from
-torch.profiler), and the times weighted by the calls of each length in one
-step.
+M2NetP forward (and L=12, and steep decay at L=3584, on ``chip_smoke.py``'s
+seeded inputs) each version's error against the plain version and its time
+in turns (others, this, this, others reversed), the host's time to issue a
+call, each kernel's device time (from torch.profiler), and the times
+weighted by the calls of each length in one forward or training step.
+``--kernel bwd`` (the default) times K2 at ``--batch`` (12) against
+``scan_core_bwd_plain``. ``--kernel fwd`` times K1 as serving calls it
+(batch 4, no carries) and as training does (batch 12, with the carries the
+backward starts from), y against ``scan_core_plain`` and the carries against
+its carries; ``--trace`` adds each version's per-block phases (walk 1,
+look-back, walk 2) from the kernel's trace.
 Every line is JSON and also goes to ``chiprun_out/kernel_timing.jsonl``.
 Needs a CUDA card; exits non-zero without one or when a version disagrees
-with the plain backward beyond 1e-4 of a gradient's max.
+with the plain version beyond 1e-4 of an output's max.
 """
 
 import argparse
@@ -37,7 +43,8 @@ sys.path.insert(0, str(ROOT))
 # the path's shapes, the seeded inputs, the timer and the bound of the
 # smoke run at the root of the checkout
 import chip_smoke  # noqa: E402
-from chip_smoke import K_DIRS, KD, N_STATE, PATH_SHAPES  # noqa: E402
+from chip_smoke import (K_DIRS, KD, N_STATE, PATH_SHAPES,  # noqa: E402
+                        TILE_BATCH, TRAIN_BATCH)
 LOG = ROOT / "chiprun_out" / "kernel_timing.jsonl"
 TOL = 1e-4
 
@@ -94,52 +101,52 @@ def device_us_by_kernel(fn, reps=3):
     return out
 
 
+def rel_error(got, want):
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
 def rel_errors(got, want):
-    return {name: (g - w).abs().max().item() / w.abs().max().item()
+    return {name: rel_error(g, w)
             for name, g, w in zip(("du", "ddelta", "dbc", "dA"), got, want)}
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--other", action="append", default=[],
-                        help="a directory holding another nnuzoo_tpu_torch")
-    parser.add_argument("--batch", type=int, default=12)
-    parser.add_argument("--reps", type=int, default=10)
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("kernel_timing: no CUDA device", file=sys.stderr)
-        return 1
-    LOG.parent.mkdir(exist_ok=True)
-    LOG.write_text("")
-    emit(card=chip_smoke.card_line(), torch=torch.__version__,
-         cuda=torch.version.cuda)
+def cases():
+    """(L, steep) of every run: the path's lengths, L=12, steep decay."""
+    return [(L, False) for L, _ in PATH_SHAPES] + [(12, False), (3584, True)]
 
-    versions = {}
-    for i, directory in enumerate(args.other):
-        versions[f"other{i}:{directory}"] = load_other(directory, f"k2_other{i}")
-    versions["this"] = (this_scan, _build)
-    for label, (_, build) in versions.items():
-        logs = build.build_all()
-        log = logs.get("selective_scan_bwd", "(built before)")
-        emit(version=label, ptxas=[line.strip() for line in log.splitlines()
-                                   if re.search(r"registers|spill|Compiling", line)])
-    others = [v for v in versions if v != "this"]
-    order = others + ["this", "this"] + others[::-1]
 
+def timed(row, versions, order, call, reps):
+    """Each version's time in turns, host issue time and device time by
+    kernel, into ``row``; ``call(scan)`` makes one call of a version. Below
+    L=3584 a call is bound by the host's issue time, which spreads from run
+    to run: those turns take five times the calls."""
+    reps = reps if row["L"] >= 3584 else 5 * reps
+    times = {v: [] for v in versions}
+    for label in order:
+        scan = versions[label][0]
+        times[label].append(chip_smoke.time_ms(lambda: call(scan), reps))
+    row["ms"] = {v: sum(t) / len(t) for v, t in times.items()}
+    row["ms_each"] = times
+    row["host_ms"], row["device_us"] = {}, {}
+    for label, (scan, _) in versions.items():
+        row["host_ms"][label] = host_ms(lambda: call(scan))
+        row["device_us"][label] = device_us_by_kernel(lambda: call(scan))
+
+
+def time_backward(versions, order, batch, reps):
     weight = dict(PATH_SHAPES)
     totals = {v: 0.0 for v in versions}
     failed = []
-    cases = [(L, False) for L, _ in PATH_SHAPES] + [(12, False), (3584, True)]
-    for L, steep in cases:
+    for L, steep in cases():
         (u, delta, A_t, bc), dy = chip_smoke.scan_inputs(
-            args.batch, L, KD, N_STATE, K_DIRS, seed=L, steep=steep)
+            batch, L, KD, N_STATE, K_DIRS, seed=L, steep=steep)
         with torch.inference_mode():
             y, carries = this_scan.scan_core(u, delta, A_t, bc, return_carries=True)
             carries = carries if carries.shape[1] > 1 else None
             want = this_scan.scan_core_bwd_plain(u, delta, A_t, bc, dy)
-            row = dict(B=args.batch, L=L, steep=steep,
+            row = dict(B=batch, L=L, steep=steep,
                        bound_ms=chip_smoke.scan_bwd_bound(
-                           args.batch, L, KD, N_STATE, K_DIRS)[0], err={}, ms={})
+                           batch, L, KD, N_STATE, K_DIRS)[0], err={})
             for label, (scan, _) in versions.items():
                 got = scan.scan_core_bwd(u, delta, A_t, bc, dy, carries)
                 torch.cuda.synchronize()
@@ -147,20 +154,9 @@ def main(argv=None):
                 if max(row["err"][label].values()) > TOL:
                     failed.append((label, L, steep))
                 del got
-            times = {v: [] for v in versions}
-            for label in order:
-                scan = versions[label][0]
-                times[label].append(chip_smoke.time_ms(
-                    lambda: scan.scan_core_bwd(u, delta, A_t, bc, dy, carries),
-                    args.reps))
-            row["ms"] = {v: sum(t) / len(t) for v, t in times.items()}
-            row["ms_each"] = times
-            row["host_ms"] = {}
-            row["device_us"] = {}
-            for label, (scan, _) in versions.items():
-                call = lambda: scan.scan_core_bwd(u, delta, A_t, bc, dy, carries)
-                row["host_ms"][label] = host_ms(call)
-                row["device_us"][label] = device_us_by_kernel(call)
+            timed(row, versions, order,
+                  lambda scan: scan.scan_core_bwd(u, delta, A_t, bc, dy, carries),
+                  reps)
         emit(**row)
         if L in weight and not steep:
             for v in versions:
@@ -169,8 +165,159 @@ def main(argv=None):
         torch.cuda.empty_cache()
     emit(step_weighted_ms=totals,
          step_bound_ms=sum(n * chip_smoke.scan_bwd_bound(
-             args.batch, L, KD, N_STATE, K_DIRS)[0] for L, n in PATH_SHAPES),
+             batch, L, KD, N_STATE, K_DIRS)[0] for L, n in PATH_SHAPES),
          failed=failed)
+    return failed
+
+
+def time_forward(versions, order, reps):
+    """K1 at the serving batch without carries and at the training batch
+    with them; the totals are one forward's 80 calls of each."""
+    weight = dict(PATH_SHAPES)
+    totals = {(b, v): 0.0 for b in (TILE_BATCH, TRAIN_BATCH) for v in versions}
+    failed = []
+    for L, steep in cases():
+        for batch in (TILE_BATCH, TRAIN_BATCH):
+            train = batch == TRAIN_BATCH
+            (u, delta, A_t, bc), _ = chip_smoke.scan_inputs(
+                batch, L, KD, N_STATE, K_DIRS, seed=L, steep=steep)
+            with torch.inference_mode():
+                want, want_carries = this_scan.scan_core_plain(
+                    u, delta, A_t, bc, chunk=this_scan._pick_chunk(batch, L, KD),
+                    return_carries=True)
+                row = dict(B=batch, L=L, steep=steep, carries=train,
+                           bound_ms=chip_smoke.scan_bound(
+                               batch, L, KD, N_STATE, K_DIRS)[0], err={})
+                for label, (scan, _) in versions.items():
+                    y, carries = scan.scan_core(u, delta, A_t, bc,
+                                                return_carries=True)
+                    torch.cuda.synchronize()
+                    row["err"][label] = dict(y=rel_error(y, want),
+                                             carries=rel_error(carries, want_carries))
+                    if max(row["err"][label].values()) > TOL:
+                        failed.append((label, batch, L, steep))
+                    del y, carries
+                del want, want_carries
+                timed(row, versions, order,
+                      lambda scan: scan.scan_core(u, delta, A_t, bc,
+                                                  return_carries=train), reps)
+            emit(**row)
+            if L in weight and not steep:
+                for v in versions:
+                    totals[batch, v] += weight[L] * row["ms"][v]
+            del u, delta, A_t, bc
+            torch.cuda.empty_cache()
+    bound = {b: sum(n * chip_smoke.scan_bound(b, L, KD, N_STATE, K_DIRS)[0]
+                    for L, n in PATH_SHAPES) for b in (TILE_BATCH, TRAIN_BATCH)}
+    emit(serving_forward_ms={v: totals[TILE_BATCH, v] for v in versions},
+         serving_forward_bound_ms=bound[TILE_BATCH],
+         step_weighted_ms={v: totals[TRAIN_BATCH, v] for v in versions},
+         step_bound_ms=bound[TRAIN_BATCH], failed=failed)
+    return failed
+
+
+def forward_trace(scan, build, batch, L):
+    """The phases of one forward call (this version's kernel or a copy with
+    the same trace entry) from the kernel's per-block trace, in µs a block:
+    walk 1 (with the wait for the first staged steps), the look-back (split
+    into publishing the tile's aggregate and, by a group's last tile, the
+    group's; polling the groups' flags; applying the groups' aggregates; and
+    the rest, which publishes the group's inclusive state and applies the
+    group's earlier tiles) and walk 2; the group and tile aggregates
+    applied; the call's span and the blocks running at once on average.
+    None for a version without the trace."""
+    import ctypes
+    import numpy as np
+    lib = build.load("selective_scan_fwd")
+    if not hasattr(lib, "nnuzoo_selective_scan_fwd_trace"):
+        return None
+    setter = lib.nnuzoo_selective_scan_fwd_trace
+    setter.argtypes, setter.restype = [ctypes.c_void_p], ctypes.c_int
+    train = batch == TRAIN_BATCH
+    (u, delta, A_t, bc), _ = chip_smoke.scan_inputs(
+        batch, L, KD, N_STATE, K_DIRS, seed=L)
+    plan = scan._fwd_plan(batch, L, KD, K_DIRS, N_STATE, *scan._fwd_kernel_fns()[1:])
+    with torch.inference_mode():
+        scan.scan_core(u, delta, A_t, bc, return_carries=train)
+        trace = torch.zeros(plan["blocks"], 8, dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        slots = setter(trace.data_ptr())
+        try:
+            scan.scan_core(u, delta, A_t, bc, return_carries=train)
+            torch.cuda.synchronize()
+        finally:
+            setter(None)
+    if slots != trace.shape[1]:
+        raise RuntimeError(f"trace entry returned {slots}")
+    t = trace.cpu().numpy().astype(np.float64)
+    start, walk1, look, end = (t[:, i] for i in range(4))
+
+    def stats(x):
+        return dict(mean=float(x.mean()), p50=float(np.percentile(x, 50)),
+                    p90=float(np.percentile(x, 90)), max=float(x.max()))
+
+    span = end.max() - start.min()
+    counts = trace[:, 6].cpu().numpy()
+    looked = t[:, 5] > 0          # the first group's tiles do not look back
+    return dict(B=batch, L=L, carries=train, blocks=plan["blocks"],
+                tile=scan._fwd_kernel_fns()[1], group=scan._fwd_kernel_fns()[2],
+                span_us=span / 1e3,
+                walk1_us=stats((walk1 - start) / 1e3),
+                look_back_us=stats((look - walk1) / 1e3),
+                publish_us=stats((t[:, 7] - walk1) / 1e3),
+                poll_us=stats((t[looked, 5] - t[looked, 7]) / 1e3),
+                groups_us=stats((t[looked, 4] - t[looked, 5]) / 1e3),
+                tiles_us=stats((look - t[:, 4]) / 1e3),
+                walk2_us=stats((end - look) / 1e3),
+                groups_applied=stats((counts & 0xFFFFFFFF).astype(np.float64)),
+                tiles_applied=stats((counts >> 32).astype(np.float64)),
+                blocks_at_once=float((end - start).sum() / span))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernel", choices=("fwd", "bwd"), default="bwd")
+    parser.add_argument("--other", action="append", default=[],
+                        help="a directory holding another nnuzoo_tpu_torch")
+    parser.add_argument("--batch", type=int, default=12,
+                        help="batch of the backward's runs")
+    parser.add_argument("--reps", type=int, default=10)
+    parser.add_argument("--trace", action="store_true",
+                        help="with --kernel fwd: each version's per-block "
+                             "phases at L=57344 and 3584, both batches")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_timing: no CUDA device", file=sys.stderr)
+        return 1
+    LOG.parent.mkdir(exist_ok=True)
+    LOG.write_text("")
+    emit(card=chip_smoke.card_line(), torch=torch.__version__,
+         cuda=torch.version.cuda, kernel=args.kernel)
+
+    versions = {}
+    for i, directory in enumerate(args.other):
+        versions[f"other{i}:{directory}"] = load_other(directory, f"scan_other{i}")
+    versions["this"] = (this_scan, _build)
+    source = "selective_scan_fwd" if args.kernel == "fwd" else "selective_scan_bwd"
+    for label, (_, build) in versions.items():
+        logs = build.build_all()
+        log = logs.get(source, "(built before)")
+        emit(version=label, ptxas=[line.strip() for line in log.splitlines()
+                                   if re.search(r"registers|spill|Compiling", line)])
+    others = [v for v in versions if v != "this"]
+    order = others + ["this", "this"] + others[::-1]
+    if args.kernel == "fwd":
+        if args.trace:
+            for label, (scan, build) in versions.items():
+                for L in (57344, 3584):
+                    for batch in (TILE_BATCH, TRAIN_BATCH):
+                        phases = forward_trace(scan, build, batch, L)
+                        if phases is not None:
+                            emit(version=label, trace=phases)
+                torch.cuda.empty_cache()
+        failed = time_forward(versions, order, args.reps)
+    else:
+        failed = time_backward(versions, order, args.batch, args.reps)
     return 1 if failed else 0
 
 

@@ -22,6 +22,7 @@ Semantics follow the reference recurrence:
 """
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -41,6 +42,10 @@ KERNEL_STATE_SIZES = (16,)
 # least L / ceil(L / _MIN_CHUNK) steps (28 at L=56), or L when L < _MIN_CHUNK
 _TARGET_THREADS = 132 * 1024
 _MIN_CHUNK = 32
+# channels of a forward block; the dynamic shared memory a block may take on
+# an H100 (227 KB, less the kernel's few static bytes)
+_FWD_BLOCK = 128
+_FWD_SMEM_MAX = 232448 - 256
 
 
 # ------------------------------------------------------------------ normalization
@@ -108,10 +113,13 @@ def _affine_scan(a, b, dim):
     return a, b
 
 
-def scan_core_plain(u, delta, A_t, bc, chunk: int = 256):
+def scan_core_plain(u, delta, A_t, bc, chunk: int = 256,
+                    return_carries: bool = False):
     """The kernel's plain version, same contract as :func:`scan_core`. Walks L
     in chunks (the last one may be short), scans each chunk with
-    :func:`_affine_scan` and carries the state between chunks."""
+    :func:`_affine_scan` and carries the state between chunks.
+    ``return_carries``: also the state entering each chunk, (B, chunks, N,
+    K*Dh), as the kernel writes them for chunks of the same length."""
     batch, L, KD = u.shape
     N = A_t.shape[0]
     K = bc.shape[2] // (2 * N)
@@ -119,8 +127,9 @@ def scan_core_plain(u, delta, A_t, bc, chunk: int = 256):
     A = A_t.t()                                          # (KD, N)
     bc5 = bc.reshape(batch, L, K, 2, N)
     h = u.new_zeros(batch, KD, N)
-    ys = []
+    ys, entries = [], []
     for t0 in range(0, L, chunk):
+        entries.append(h.transpose(1, 2))
         t1 = min(t0 + chunk, L)
         T = t1 - t0
         d = delta[:, t0:t1, :, None]                     # (B, T, KD, 1)
@@ -133,7 +142,8 @@ def scan_core_plain(u, delta, A_t, bc, chunk: int = 256):
              bc5[:, t0:t1, :, None, 1]).sum(-1)
         ys.append(y.reshape(batch, T, KD))
         h = states[:, -1]
-    return torch.cat(ys, dim=1)
+    y = torch.cat(ys, dim=1)
+    return (y, torch.stack(entries, dim=1)) if return_carries else y
 
 
 def selective_scan_chunked(u, delta, A, B, C, D=None, z=None, delta_bias=None,
@@ -222,18 +232,25 @@ def _pick_chunk(batch: int, L: int, KD: int) -> int:
     return math.ceil(L / nchunks)
 
 
-_fwd_fn = None
+_fwd_fns = None
 _bwd_fns = None
 
 
-def _kernel_fn():
-    global _fwd_fn
-    if _fwd_fn is None:
-        fn = _build.load("selective_scan_fwd").nnuzoo_selective_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def _fwd_kernel_fns():
+    """(the forward's entry, its tile length in steps, its tiles a group)."""
+    global _fwd_fns
+    if _fwd_fns is None:
+        lib = _build.load("selective_scan_fwd")
+        fn = lib.nnuzoo_selective_scan_fwd
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fwd_fn = fn
-    return _fwd_fn
+        sizes = []
+        for name in ("nnuzoo_selective_scan_fwd_tile", "nnuzoo_selective_scan_fwd_group"):
+            size = getattr(lib, name)
+            size.argtypes, size.restype = [], ctypes.c_int
+            sizes.append(size())
+        _fwd_fns = (fn, *sizes)
+    return _fwd_fns
 
 
 def _bwd_kernel_fns():
@@ -284,29 +301,101 @@ def _check_kernel_inputs(u, delta, A_t, bc, **more):
         raise ValueError(f"K*Dh={KD} is not a multiple of K={K}")
     if bc.data_ptr() % 16:
         raise ValueError("bc must be 16-byte aligned for the kernel's vector loads")
-    if batch > 65535 or math.ceil(L / _pick_chunk(batch, L, KD)) > 65535:
+    # the backward's grid is (column blocks, chunks, batch), the forward's
+    # one block a (batch, tile, column block); its tiles are at least 32 steps
+    if batch > 65535 or math.ceil(L / _pick_chunk(batch, L, KD)) > 65535 or \
+            batch * math.ceil(L / 32) * math.ceil(KD / _FWD_BLOCK) >= 2 ** 31 - 1:
         raise ValueError(f"batch {batch} or L {L} exceeds the kernel's grid")
     return batch, L, KD, K, N
 
 
-def _scan_core_cuda(u, delta, A_t, bc):
-    """Launch the forward kernel: (y, carries), carries the state entering
-    each chunk, (B, chunks, N, K*Dh), or None with one chunk (the kernel
-    writes none then: the scan starts from zero)."""
+def _fwd_plan(batch, L, KD, K, N, tile, group):
+    """The forward kernel's launch for tiles of ``tile`` steps in look-back
+    groups of ``group`` tiles, as the C entry makes it: {ntiles, ngroups,
+    ncb (column blocks of 128 channels), blocks, bc_width (floats of bc a
+    block stages per step: every direction its channels touch), smem (bytes
+    of a block's staged tile: u and delta of its channels, its bc columns)}.
+    Raises on a shape whose tile does not fit."""
+    if KD % 4:
+        raise ValueError(f"the forward scan kernel copies rows 16 bytes at a "
+                         f"time: K*Dh must be a multiple of 4, got {KD}")
+    Dh = KD // K
+    ncb = math.ceil(KD / _FWD_BLOCK)
+    bc_width = 0
+    for cb in range(ncb):
+        c0 = cb * _FWD_BLOCK
+        c1 = min(c0 + _FWD_BLOCK, KD)
+        bc_width = max(bc_width, ((c1 - 1) // Dh - c0 // Dh + 1) * 2 * N)
+    smem = 4 * tile * (2 * min(KD, _FWD_BLOCK) + bc_width)
+    if smem > _FWD_SMEM_MAX:
+        raise ValueError(f"a {tile}-step tile of K*Dh={KD} with Dh={Dh} needs "
+                         f"{smem} bytes of shared memory, more than a block has "
+                         f"({_FWD_SMEM_MAX}): Dh is too small")
+    ntiles = math.ceil(L / tile)
+    return dict(ntiles=ntiles, ngroups=math.ceil(ntiles / group), ncb=ncb,
+                blocks=batch * ntiles * ncb, bc_width=bc_width, smem=smem)
+
+
+def _fwd_scratch_layout(batch, ntiles, ngroups, ncb, N, KD):
+    """The forward kernel's look-back scratch as one 4-byte allocation:
+    ({name: (offset, count)}, total). ``flags`` (one int32 a block, one a
+    group and column block, then the ticket), zeroed by the kernel's entry,
+    comes first; then each tile's aggregate, ``agg`` (its end state from
+    zero) and ``agg_dsum`` (its sum of delta), and each group's, ``gagg`` and
+    ``gdsum`` (its tiles composed in order), and ``gincl`` (the state leaving
+    the group); every piece starts on a 16-byte boundary."""
+    parts = [("flags", batch * (ntiles + ngroups) * ncb + 1),
+             ("agg", batch * ntiles * N * KD),
+             ("agg_dsum", batch * ntiles * KD),
+             ("gagg", batch * ngroups * N * KD),
+             ("gdsum", batch * ngroups * KD),
+             ("gincl", batch * ngroups * N * KD)]
+    layout, off = {}, 0
+    for name, count in parts:
+        layout[name] = (off, count)
+        off += -(-count // 4) * 4
+    return layout, off
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_launch(batch, L, KD, K, N, tile, group):
+    """The offsets (floats) of the forward's scratch pieces, in the order the
+    C entry takes them, and its size: the plan and layout of one shape,
+    kept, since at small L the wrapper's host time sets the call's."""
+    plan = _fwd_plan(batch, L, KD, K, N, tile, group)
+    layout, total = _fwd_scratch_layout(batch, plan["ntiles"], plan["ngroups"],
+                                        plan["ncb"], N, KD)
+    return tuple(off for off, _ in layout.values()), total
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its data does not start on a 16-byte
+    boundary (the kernels copy rows 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _scan_core_cuda(u, delta, A_t, bc, carries: bool = False):
+    """Launch the forward kernel: (y, carries). ``carries``: also write the
+    state entering each chunk of :func:`_pick_chunk`, (B, chunks, N, K*Dh),
+    which the backward kernel starts from; else None."""
     batch, L, KD, K, N = _check_kernel_inputs(u, delta, A_t, bc)
-    chunk = _pick_chunk(batch, L, KD)
-    nchunks = math.ceil(L / chunk)
+    fn, tile, group = _fwd_kernel_fns()
+    offsets, total = _fwd_launch(batch, L, KD, K, N, tile, group)
+    u, delta = _aligned(u), _aligned(delta)
     y = torch.empty_like(u)
-    states = dsum = None
-    if nchunks > 1:
-        states = torch.empty(batch, nchunks, N, KD, device=u.device)
-        dsum = torch.empty(batch, nchunks, KD, device=u.device)
-    fn = _kernel_fn()
+    states, chunk = None, 0
+    if carries:
+        chunk = _pick_chunk(batch, L, KD)
+        states = torch.empty(batch, math.ceil(L / chunk), N, KD, device=u.device)
+    # one allocation for the look-back's flags and states, handed out as
+    # pointers
+    scratch = torch.empty(total, device=u.device)
+    base = scratch.data_ptr()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         rc = fn(u.data_ptr(), delta.data_ptr(), A_t.data_ptr(), bc.data_ptr(),
                 y.data_ptr(), states.data_ptr() if states is not None else None,
-                dsum.data_ptr() if dsum is not None else None,
+                *(base + 4 * off for off in offsets),
                 batch, L, K, KD // K, N, chunk, stream)
     if rc != 0:
         raise RuntimeError(f"selective_scan_fwd kernel launch failed with CUDA "
@@ -321,19 +410,14 @@ def scan_core(u, delta, A_t, bc, return_carries: bool = False):
 
     On CUDA tensors this launches ``csrc/selective_scan_fwd.cu`` on the
     current stream and counts the launch in ``scan_core.launches``; it raises
-    on anything the kernel does not take. The kernel always writes the state
-    entering each of its chunks, (B, chunks, N, K*Dh), as its own scratch
-    whenever it cuts L into more than one chunk; ``return_carries`` only
-    decides whether they are returned. On CPU tensors it runs
-    :func:`scan_core_plain` (which has no carries)."""
+    on anything the kernel does not take. ``return_carries``: the kernel also
+    writes the state entering each chunk of :func:`_pick_chunk`, (B, chunks,
+    N, K*Dh), which the backward kernel starts from, and they are returned as
+    (y, carries); without it the kernel writes none. On CPU tensors it runs
+    :func:`scan_core_plain` and takes no ``return_carries``."""
     if u.device.type == "cuda":
-        y, states = _scan_core_cuda(u, delta, A_t, bc)
-        if not return_carries:
-            return y
-        if states is None:
-            states = torch.zeros(u.shape[0], 1, A_t.shape[0], u.shape[2],
-                                 device=u.device)
-        return y, states
+        y, states = _scan_core_cuda(u, delta, A_t, bc, carries=return_carries)
+        return (y, states) if return_carries else y
     if return_carries:
         raise ValueError("chunk carries come from the CUDA kernel only")
     return scan_core_plain(u, delta, A_t, bc)
@@ -357,12 +441,6 @@ def _bwd_scratch_layout(batch, nchunks, nsub, N, KD):
         layout[name] = (off, shape)
         off += -(-math.prod(shape) // 4) * 4
     return layout, off
-
-
-def _aligned(t):
-    """``t``, or a copy of it where its data does not start on a 16-byte
-    boundary (the kernel copies rows 16 bytes at a time)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _scan_core_bwd_cuda(u, delta, A_t, bc, dy, carries):
@@ -433,9 +511,13 @@ class _ScanCore(torch.autograd.Function):
     """:func:`scan_core` with :func:`scan_core_bwd` as its gradient."""
 
     @staticmethod
-    def forward(ctx, u, delta, A_t, bc):
+    def forward(ctx, u, delta, A_t, bc, grad_enabled):
         if u.device.type == "cuda":
-            y, carries = _scan_core_cuda(u, delta, A_t, bc)
+            # the carries only where a backward can follow (``grad_enabled``
+            # is the caller's grad mode: inside forward it is always off)
+            y, carries = _scan_core_cuda(
+                u, delta, A_t, bc,
+                carries=grad_enabled and any(ctx.needs_input_grad[:4]))
         else:
             y, carries = scan_core_plain(u, delta, A_t, bc), None
         ctx.save_for_backward(u, delta, A_t, bc, carries)
@@ -447,7 +529,7 @@ class _ScanCore(torch.autograd.Function):
         u, delta, A_t, bc, carries = ctx.saved_tensors
         du, ddelta, dbc, dA_t = scan_core_bwd(u, delta, A_t, bc,
                                               dy.contiguous(), carries)
-        return du, ddelta, dA_t, dbc
+        return du, ddelta, dA_t, dbc, None
 
 
 class _ScanCorePlainPair(torch.autograd.Function):
@@ -468,9 +550,9 @@ class _ScanCorePlainPair(torch.autograd.Function):
 
 def scan_core_grad(u, delta, A_t, bc):
     """:func:`scan_core`, differentiable: the forward keeps its inputs and,
-    on the card, the kernel's chunk carries; the backward is
-    :func:`scan_core_bwd`."""
-    return _ScanCore.apply(u, delta, A_t, bc)
+    on the card where a backward can follow, the kernel's chunk carries; the
+    backward is :func:`scan_core_bwd`."""
+    return _ScanCore.apply(u, delta, A_t, bc, torch.is_grad_enabled())
 
 
 def selective_scan_blkd(u, delta, A, Bmat, Cmat, D=None, delta_bias=None,

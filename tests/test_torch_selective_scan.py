@@ -106,3 +106,30 @@ def test_ref_and_chunked_match_ref_jax(grouped, with_z):
         got = tscan.selective_scan_chunked(*[_t(a) for a in args],
                                            delta_softplus=True, chunk=chunk)
         _close(got, want)
+
+
+@pytest.mark.parametrize("chunk", ["16", "32"])
+def test_plain_carries_match_pallas_forward_carries(chunk, monkeypatch):
+    """The forward kernel's second output, the state entering each chunk
+    (what the backward kernel starts from): ``scan_core_plain(...,
+    return_carries=True)`` at the Pallas kernel's chunk against
+    ``_scan_core_pallas_fwd`` in interpret mode (its per-chunk body at 16,
+    the MXU body at 32), with y; fp32 with another association, so 1e-4 of
+    the max."""
+    monkeypatch.setenv("NNUZOO_SCAN_CHUNK", chunk)
+    rng = np.random.RandomState(int(chunk))
+    f = np.float32
+    B, L, K, Dh, N = 2, 96, 4, 8, 16
+    u = rng.randn(B, L, K * Dh).astype(f)
+    delta = (0.001 + 0.099 * rng.rand(B, L, K * Dh)).astype(f)
+    A_t = (-N * rng.rand(N, K * Dh) - 1e-3).astype(f)
+    bc = rng.randn(B, L, K * 2 * N).astype(f)
+    want_y, residuals = jscan._scan_core_pallas_fwd(
+        *(jnp.asarray(x) for x in (u, delta, A_t, bc)), True)
+    want_carries = np.asarray(residuals[-1])
+    assert want_carries.shape == (B, L // int(chunk), N, K * Dh)
+    y, carries = tscan.scan_core_plain(
+        *(torch.from_numpy(x) for x in (u, delta, A_t, bc)), chunk=int(chunk),
+        return_carries=True)
+    _close(y, want_y)
+    _close(carries, want_carries)
