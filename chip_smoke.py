@@ -658,14 +658,14 @@ def kernel_ms(kernels, *names, exclude=()):
 
 # kernel-name fragments of the scan kernels in a profile, and the fragments
 # that exclude a name: K1 (one kernel), K2 (passes A, B, C), K3 (its passes;
-# K2's pass A and K4's passes also end in "chunk_kernel<"), K4, and the carry
-# pass that K3 and K4 share
+# K2's pass A also ends in "chunk_kernel<"), K4 (passes A and C), and the
+# carry pass that K3 and K4 share
 SCAN_KERNEL_NAMES = {
     "k1": (("scan_lookback_kernel",), ()),
     "k2": (("forward_chunk_kernel", "adjoint_carry_kernel", "grad_tile_kernel"),
            ()),
-    "k3": (("chunk_kernel<",), ("forward_chunk", "adjoint_chunk", "grad_chunk")),
-    "k4": (("adjoint_chunk_kernel<", "grad_chunk_kernel<"), ()),
+    "k3": (("chunk_kernel<",), ("forward_chunk",)),
+    "k4": (("cross_walk_kernel<", "cross_grad_kernel<"), ()),
     "k3_k4_carry": (("cross_scan::carry_kernel",), ()),
 }
 

@@ -1,8 +1,8 @@
-"""Times this checkout's selective-scan forward (K1) or backward (K2) kernel
-against the same kernel of other checkouts of the package, in one process on
-one card.
+"""Times this checkout's selective-scan forward (K1) or backward (K2) kernel,
+or its fused cross-scan backward (K4), against the same kernel of other
+checkouts of the package, in one process on one card.
 
-    python -m nnuzoo_tpu_torch.kernel_timing [--kernel fwd|bwd] --other DIR [--other DIR ...]
+    python -m nnuzoo_tpu_torch.kernel_timing [--kernel fwd|bwd|cross_bwd] --other DIR [--other DIR ...]
 
 Each DIR holds a ``nnuzoo_tpu_torch`` package from another commit (for the
 parent: ``git archive <commit> nnuzoo_tpu_torch | tar -x -C DIR``, with DIR
@@ -19,10 +19,16 @@ weighted by the calls of each length in one forward or training step.
 (batch 4, no carries) and as training does (batch 12, with the carries the
 backward starts from), y against ``scan_core_plain`` and the carries against
 its carries; ``--trace`` adds each version's per-block phases (walk 1,
-look-back, walk 2) from the kernel's trace.
+look-back, walk 2) from the kernel's trace. ``--kernel cross_bwd`` times K4
+at ``--batch`` in both orientations at the path's lengths, L=12 and L=1000
+(G=2, Dh=32, R=1, from this checkout's K3 carries), with the errors of the
+d_streams and of each weight gradient against ``cross_scan_bwd_plain``, and
+adds G=3, Dh=64, R=2 and G=2, Dh=256, R=8 for the errors; its step total
+weighs each length by the 2n calls of a training step with the fused glue.
 Every line is JSON and also goes to ``chiprun_out/kernel_timing.jsonl``.
 Needs a CUDA card; exits non-zero without one or when a version disagrees
-with the plain version beyond 1e-4 of an output's max.
+with the plain version beyond 1e-4 of an output's max (for K4's weight
+gradients, sums over up to B*L positions, 1e-3).
 """
 
 import argparse
@@ -36,6 +42,7 @@ from pathlib import Path
 import torch
 
 from . import _build
+from .ops import cross_scan as this_cross
 from .ops import selective_scan as this_scan
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -43,8 +50,9 @@ sys.path.insert(0, str(ROOT))
 # the path's shapes, the seeded inputs, the timer and the bound of the
 # smoke run at the root of the checkout
 import chip_smoke  # noqa: E402
-from chip_smoke import (K_DIRS, KD, N_STATE, PATH_SHAPES,  # noqa: E402
-                        TILE_BATCH, TRAIN_BATCH)
+from chip_smoke import (CROSS_DH, CROSS_G, CROSS_R, CROSS_TOL,  # noqa: E402
+                        CROSS_WEIGHT_GRAD_TOL, K_DIRS, KD, N_STATE,
+                        PATH_SHAPES, TILE_BATCH, TRAIN_BATCH)
 LOG = ROOT / "chiprun_out" / "kernel_timing.jsonl"
 TOL = 1e-4
 
@@ -56,16 +64,16 @@ def emit(**fields):
         f.write(line + "\n")
 
 
-def load_other(directory, alias):
+def load_other(directory, alias, ops_module):
     """The ``nnuzoo_tpu_torch`` package under ``directory``, imported as
-    ``alias``; returns its ``ops.selective_scan`` and ``_build``."""
+    ``alias``; returns its ``ops.<ops_module>`` and ``_build``."""
     pkg = Path(directory).resolve() / "nnuzoo_tpu_torch"
     spec = importlib.util.spec_from_file_location(
         alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     module = importlib.util.module_from_spec(spec)
     sys.modules[alias] = module
     spec.loader.exec_module(module)
-    return (importlib.import_module(f"{alias}.ops.selective_scan"),
+    return (importlib.import_module(f"{alias}.ops.{ops_module}"),
             importlib.import_module(f"{alias}._build"))
 
 
@@ -166,6 +174,71 @@ def time_backward(versions, order, batch, reps):
     emit(step_weighted_ms=totals,
          step_bound_ms=sum(n * chip_smoke.scan_bwd_bound(
              batch, L, KD, N_STATE, K_DIRS)[0] for L, n in PATH_SHAPES),
+         failed=failed)
+    return failed
+
+
+CROSS_NAMES = ("d_streams", "dWx", "dWdt", "dbias", "dA", "dD")
+
+
+def cross_cases():
+    """(L, G, Dh, R) of K4's runs: the path's lengths, L=12 and L=1000 at
+    M2NetP's widths, then G=3 with Dh=64 and R=2 and M2Net's width (for the
+    errors; off the path, so out of the step's total)."""
+    fused = (CROSS_G, CROSS_DH, CROSS_R)
+    return ([(L, *fused) for L, _ in PATH_SHAPES] + [(12, *fused), (1000, *fused)]
+            + [(301, 3, 64, 2), (56, 2, 256, 8)])
+
+
+def cross_errors(got, want):
+    """Each output's max abs error over its max, the G d_streams as one."""
+    flat = lambda t: [torch.cat(list(t[0]), -1), *t[1:]]
+    return {name: rel_error(g, w)
+            for name, g, w in zip(CROSS_NAMES, flat(got), flat(want))}
+
+
+def time_cross_backward(versions, order, batch, reps):
+    """K4 at ``batch``, both orientations, from this checkout's K3 carries;
+    the step total counts each path length's n calls in each orientation."""
+    weight = dict(PATH_SHAPES)
+    fused = (CROSS_G, CROSS_DH, CROSS_R)
+    totals = {v: 0.0 for v in versions}
+    failed = []
+    for i, (L, g, dh, r) in enumerate(cross_cases()):
+        streams, w, dy = chip_smoke.cross_inputs(batch, L, g, dh, r, seed=200 + i)
+        for reverse in (False, True):
+            with torch.inference_mode():
+                _, carries = this_cross.cross_scan_fwd(streams, *w, reverse,
+                                                       return_carries=True)
+                want = this_cross.cross_scan_bwd_plain(streams, *w, dy, reverse)
+                row = dict(B=batch, L=L, G=g, Dh=dh, R=r, reverse=reverse,
+                           bound_ms=chip_smoke.cross_bound(
+                               batch, L, g, dh, N_STATE, r, True)[0], err={})
+                for label, (cross, _) in versions.items():
+                    got = cross.cross_scan_bwd(streams, *w, dy, reverse, carries)
+                    torch.cuda.synchronize()
+                    errs = cross_errors(got, want)
+                    row["err"][label] = errs
+                    if any(e > (CROSS_TOL if k == "d_streams"
+                                else CROSS_WEIGHT_GRAD_TOL)
+                           for k, e in errs.items()):
+                        failed.append((label, L, g, dh, r, reverse))
+                    del got
+                del want
+                timed(row, versions, order,
+                      lambda cross: cross.cross_scan_bwd(streams, *w, dy, reverse,
+                                                         carries), reps)
+            emit(**row)
+            if L in weight and (g, dh, r) == fused:
+                for v in versions:
+                    totals[v] += weight[L] * row["ms"][v]
+            del carries
+        del streams, w, dy
+        torch.cuda.empty_cache()
+    emit(step_weighted_ms=totals,
+         step_bound_ms=2 * sum(n * chip_smoke.cross_bound(
+             batch, L, *fused[:2], N_STATE, fused[2], True)[0]
+             for L, n in PATH_SHAPES),
          failed=failed)
     return failed
 
@@ -276,11 +349,12 @@ def forward_trace(scan, build, batch, L):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("fwd", "bwd"), default="bwd")
+    parser.add_argument("--kernel", choices=("fwd", "bwd", "cross_bwd"),
+                        default="bwd")
     parser.add_argument("--other", action="append", default=[],
                         help="a directory holding another nnuzoo_tpu_torch")
     parser.add_argument("--batch", type=int, default=12,
-                        help="batch of the backward's runs")
+                        help="batch of the backward's runs (K2's and K4's)")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--trace", action="store_true",
                         help="with --kernel fwd: each version's per-block "
@@ -294,11 +368,16 @@ def main(argv=None):
     emit(card=chip_smoke.card_line(), torch=torch.__version__,
          cuda=torch.version.cuda, kernel=args.kernel)
 
+    module, this, source = {
+        "fwd": ("selective_scan", this_scan, "selective_scan_fwd"),
+        "bwd": ("selective_scan", this_scan, "selective_scan_bwd"),
+        "cross_bwd": ("cross_scan", this_cross, "cross_scan_bwd"),
+    }[args.kernel]
     versions = {}
     for i, directory in enumerate(args.other):
-        versions[f"other{i}:{directory}"] = load_other(directory, f"scan_other{i}")
-    versions["this"] = (this_scan, _build)
-    source = "selective_scan_fwd" if args.kernel == "fwd" else "selective_scan_bwd"
+        versions[f"other{i}:{directory}"] = load_other(directory, f"scan_other{i}",
+                                                       module)
+    versions["this"] = (this, _build)
     for label, (_, build) in versions.items():
         logs = build.build_all()
         log = logs.get(source, "(built before)")
@@ -316,6 +395,8 @@ def main(argv=None):
                             emit(version=label, trace=phases)
                 torch.cuda.empty_cache()
         failed = time_forward(versions, order, args.reps)
+    elif args.kernel == "cross_bwd":
+        failed = time_cross_backward(versions, order, args.batch, args.reps)
     else:
         failed = time_backward(versions, order, args.batch, args.reps)
     return 1 if failed else 0

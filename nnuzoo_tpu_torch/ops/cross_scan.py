@@ -6,7 +6,8 @@ backwards. For one traversal orientation, :func:`cross_scan_fused` computes,
 per direction g, x_dbl = x_proj[g] u (dt, B, C), delta = softplus(dt_proj[g]
 dt + bias), the selective scan and the D term, and returns y in natural
 order. ``reverse=True`` scans the same streams from the right: no flipped
-copy, and on the card no x_dbl, delta or B/C, ever reaches device memory.
+copy. On the card the forward writes no x_dbl, delta or B/C to device
+memory; the backward keeps each step's x_dbl in its scratch for the call.
 
 - :func:`cross_scan_ref`: the plain forward, the JAX oracle's math over the
   port's plain scan; autograd goes through it.
@@ -21,6 +22,7 @@ such layout, and its gradient of A comes back as (G*Dh, N) directly.
 """
 
 import ctypes
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -100,17 +102,20 @@ def _fwd_kernel_fn():
 
 
 def _bwd_kernel_fns():
-    """(the backward's entry, its count of stored states per chunk)."""
+    """(the backward's entry, its count of stored states per chunk, the
+    floats of its x_dbl rows)."""
     global _bwd_fns
     if _bwd_fns is None:
         lib = _build.load("cross_scan_bwd")
         fn = lib.nnuzoo_cross_scan_bwd
-        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         nsub = lib.nnuzoo_cross_scan_bwd_nsub
         nsub.argtypes = [ctypes.c_int] * 3
         nsub.restype = ctypes.c_int
-        _bwd_fns = (fn, nsub)
+        row = lib.nnuzoo_cross_scan_bwd_row
+        row.argtypes, row.restype = [ctypes.c_int], ctypes.c_int
+        _bwd_fns = (fn, nsub, row)
     return _bwd_fns
 
 
@@ -224,14 +229,76 @@ def cross_scan_fwd(streams, x_proj_weight, dt_weight, dt_bias, A, Ds,
 cross_scan_fwd.launches = 0
 
 
+@functools.lru_cache(maxsize=64)
+def _partial_pieces(G, Dh, R, N=KERNEL_STATE_SIZE):
+    """The five weight gradients in a row of the backward kernel's partials,
+    in the kernel's order: ((name, start, shape), ...) for dA (G*Dh, N), dWx
+    (G, C, Dh), dWdt (G, Dh, R), dbias (G, Dh) and dD (G*Dh,); and the row's
+    length P."""
+    C = R + 2 * N
+    pieces, off = [], 0
+    for name, shape in (("dA", (G * Dh, N)), ("dWx", (G, C, Dh)),
+                        ("dWdt", (G, Dh, R)), ("dbias", (G, Dh)),
+                        ("dD", (G * Dh,))):
+        pieces.append((name, off, shape))
+        off += math.prod(shape)
+    return tuple(pieces), off
+
+
+def _cross_bwd_scratch_layout(batch, nchunks, L, G, Dh, R, nsub, row,
+                              N=KERNEL_STATE_SIZE):
+    """The backward kernel's scratch as one float32 allocation: ({name:
+    (offset, shape)}, total floats). ``part`` comes first, the partials of
+    the five weight gradients side by side, one row a (batch, chunk)
+    (:func:`_partial_pieces`); then ``xdbl``, each traversal step's x_dbl in
+    rows of ``row`` floats; ``ckpt``, the state entering every tile of
+    ``nsub`` a chunk; and, with more than one chunk, ``adj`` (chunk adjoints)
+    and ``dsum``. Every piece starts on a 16-byte boundary."""
+    P = _partial_pieces(G, Dh, R, N)[1]
+    parts = [("part", (batch * nchunks, P)), ("xdbl", (batch, G, L, row)),
+             ("ckpt", (batch, nchunks, G, nsub, N, Dh))]
+    if nchunks > 1:
+        parts += [("adj", (batch, nchunks, N, G * Dh)),
+                  ("dsum", (batch, nchunks, G * Dh))]
+    layout, off = {}, 0
+    for name, shape in parts:
+        layout[name] = (off, shape)
+        off += -(-math.prod(shape) // 4) * 4
+    return layout, off
+
+
+def _sum_partials(part, G, Dh, R, N=KERNEL_STATE_SIZE):
+    """(dWx, dWdt, dbias, dA, dD) from the kernel's rows of partials ``part``
+    (B*chunks, P): one sum over the rows, then a view of each gradient."""
+    total = part.sum(0)
+    grads = {name: total[off:off + math.prod(shape)].view(shape)
+             for name, off, shape in _partial_pieces(G, Dh, R, N)[0]}
+    return tuple(grads[k] for k in ("dWx", "dWdt", "dbias", "dA", "dD"))
+
+
+@functools.lru_cache(maxsize=256)
+def _cross_bwd_launch(batch, L, G, Dh, R):
+    """(chunk, chunks, the offsets in floats of the scratch pieces in the
+    order the C entry takes them, None for a piece absent with one chunk,
+    the scratch's size): one shape's plan and layout, kept, since at small L
+    the wrapper's host time sets the call's."""
+    _, nsub, row = _bwd_kernel_fns()
+    chunk = _pick_chunk(batch, L, G * Dh)
+    nchunks = math.ceil(L / chunk)
+    layout, total = _cross_bwd_scratch_layout(
+        batch, nchunks, L, G, Dh, R, nsub(chunk, Dh, R), row(R))
+    offsets = tuple(layout[k][0] if k in layout else None
+                    for k in ("xdbl", "ckpt", "adj", "dsum", "part"))
+    return chunk, nchunks, offsets, total
+
+
 def _cross_scan_bwd_cuda(streams, x_proj_weight, dt_weight, dt_bias, A, Ds, dy,
                          reverse, carries):
     batch, L, G, Dh, R = _check_kernel_inputs(streams, x_proj_weight, dt_weight,
                                               dt_bias, A, Ds, dy)
     N = KERNEL_STATE_SIZE
     dev = streams[0].device
-    chunk = _pick_chunk(batch, L, G * Dh)
-    nchunks = math.ceil(L / chunk)
+    chunk, nchunks, offsets, total = _cross_bwd_launch(batch, L, G, Dh, R)
     if nchunks > 1:
         if carries is None:
             carries = cross_scan_fwd(streams, x_proj_weight, dt_weight, dt_bias,
@@ -241,38 +308,28 @@ def _cross_scan_bwd_cuda(streams, x_proj_weight, dt_weight, dt_bias, A, Ds, dy,
             raise ValueError(f"carries must be the forward kernel's, a contiguous "
                              f"float32 ({batch}, {nchunks}, {N}, {G * Dh}) on "
                              f"{dev}, got {tuple(carries.shape)}")
-    fn, nsub = _bwd_kernel_fns()
-    C = R + 2 * N
-    empty = lambda *shape: torch.empty(*shape, device=dev)
-    d_streams = [empty(batch, L, Dh) for _ in range(G)]
-    da_part = empty(batch, nchunks, G * Dh, N)
-    dwx_part = empty(batch, nchunks, G, C, Dh)
-    dwdt_part = empty(batch, nchunks, G, Dh, R)
-    dtb_part = empty(batch, nchunks, G, Dh)
-    dds_part = empty(batch, nchunks, G * Dh)
-    ckpt = empty(batch, nchunks, G, nsub(chunk, Dh, R), N, Dh)
-    adj = dsum = None
-    if nchunks > 1:
-        adj = empty(batch, nchunks, N, G * Dh)
-        dsum = empty(batch, nchunks, G * Dh)
-    ptr = lambda t: t.data_ptr() if t is not None else None
+    fn = _bwd_kernel_fns()[0]
+    d_streams = torch.empty(G, batch, L, Dh, device=dev).unbind(0)
+    # the scratch is handed to the kernel as pointers into one allocation;
+    # only the partials, its first piece, become a tensor
+    scratch = torch.empty(total, device=dev)
+    base = scratch.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*_stream_ptrs(streams), x_proj_weight.data_ptr(),
                 dt_weight.data_ptr(), dt_bias.data_ptr(), A.data_ptr(),
-                Ds.data_ptr(), dy.data_ptr(), ptr(carries if nchunks > 1 else None),
-                ptr(adj), ptr(dsum), ckpt.data_ptr(), *_stream_ptrs(d_streams),
-                da_part.data_ptr(), dwx_part.data_ptr(), dwdt_part.data_ptr(),
-                dtb_part.data_ptr(), dds_part.data_ptr(),
+                Ds.data_ptr(), dy.data_ptr(),
+                carries.data_ptr() if nchunks > 1 else None,
+                *(base + 4 * off if off is not None else None for off in offsets),
+                *_stream_ptrs(d_streams),
                 batch, L, G, Dh, R, N, chunk, int(reverse), stream)
     if rc != 0:
         raise RuntimeError(f"cross_scan_bwd kernel launch failed with CUDA error "
                            f"{rc}")
     cross_scan_bwd.launches += 1
-    # the kernel leaves one partial of each weight gradient per (batch,
-    # chunk): the sums over both are taken here
-    return (tuple(d_streams), dwx_part.sum((0, 1)), dwdt_part.sum((0, 1)),
-            dtb_part.sum((0, 1)), da_part.sum((0, 1)), dds_part.sum((0, 1)))
+    P = _partial_pieces(G, Dh, R, N)[1]
+    part = scratch[:batch * nchunks * P].view(batch * nchunks, P)
+    return (d_streams, *_sum_partials(part, G, Dh, R, N))
 
 
 def cross_scan_bwd(streams, x_proj_weight, dt_weight, dt_bias, A, Ds, dy,

@@ -137,6 +137,58 @@ def test_fused_glue_goes_through_cross_scan_fused(monkeypatch):
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
+# (B, chunks, L, G, Dh, R, nsub, row): M2NetP's longest level, one chunk, G=3
+# with R=2, M2Net's width
+LAYOUT_CASES = [(12, 176, 57344, 2, 32, 1, 41, 36), (2, 1, 12, 2, 32, 1, 2, 36),
+                (2, 10, 301, 3, 64, 2, 4, 36), (12, 2, 56, 2, 256, 8, 14, 40)]
+
+
+@pytest.mark.parametrize("B,nchunks,L,G,Dh,R,nsub,row", LAYOUT_CASES)
+def test_backward_scratch_layout(B, nchunks, L, G, Dh, R, nsub, row):
+    """The backward kernel's one scratch allocation: its pieces are disjoint,
+    start on 16 bytes and have the sizes the kernel indexes; with one chunk
+    there are no chunk adjoints."""
+    N = 16
+    layout, total = tcs._cross_bwd_scratch_layout(B, nchunks, L, G, Dh, R, nsub,
+                                                  row)
+    P = G * Dh * (N + R + 2 * N + R + 2)
+    want = {"part": (B * nchunks, P), "xdbl": (B, G, L, row),
+            "ckpt": (B, nchunks, G, nsub, N, Dh)}
+    if nchunks > 1:
+        want.update(adj=(B, nchunks, N, G * Dh), dsum=(B, nchunks, G * Dh))
+    assert {k: shape for k, (_, shape) in layout.items()} == want
+    assert next(iter(layout)) == "part"         # the wrapper's view starts at 0
+    spans = sorted((off, off + math.prod(shape)) for off, shape in layout.values())
+    for off, _ in spans:
+        assert off % 4 == 0
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        assert end <= start
+    assert spans[-1][1] <= total < spans[-1][1] + 4
+
+
+@pytest.mark.parametrize("G,Dh,R", [(2, 32, 1), (3, 64, 2), (2, 256, 8)])
+def test_one_sum_over_packed_partials_gives_the_five_sums(G, Dh, R):
+    """The kernel leaves one row of partials a (batch, chunk) with the five
+    weight gradients side by side; one sum over the rows and five views give
+    what five separate sums of the partials in their own layouts give."""
+    N, B, nchunks = 16, 3, 5
+    C = R + 2 * N
+    gen = torch.Generator().manual_seed(G * Dh + R)
+    # integer values: every order of the sums gives the same floats
+    rnd = lambda *shape: torch.randint(-50, 50, shape, generator=gen).float()
+    parts = {"dA": rnd(B, nchunks, G * Dh, N), "dWx": rnd(B, nchunks, G, C, Dh),
+             "dWdt": rnd(B, nchunks, G, Dh, R), "dbias": rnd(B, nchunks, G, Dh),
+             "dD": rnd(B, nchunks, G * Dh)}
+    pieces, P = tcs._partial_pieces(G, Dh, R)
+    assert [name for name, _, _ in pieces] == ["dA", "dWx", "dWdt", "dbias", "dD"]
+    rows = torch.cat([parts[name].reshape(B * nchunks, -1) for name, _, _ in pieces],
+                     1)
+    assert rows.shape == (B * nchunks, P)
+    got = tcs._sum_partials(rows, G, Dh, R)
+    for name, g in zip(("dWx", "dWdt", "dbias", "dA", "dD"), got):
+        assert torch.equal(g, parts[name].sum((0, 1))), name
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -264,3 +316,78 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         tcs.cross_scan_fwd(streams, *w)
     with pytest.raises(ValueError, match="multiple of 32"):
         tcs.cross_scan_bwd(streams, *w, torch.zeros(1, 40, 32, device=cuda_device))
+
+
+def _grads_of(streams, w, dy, reverse):
+    """The backward kernel from the forward kernel's carries, synchronised."""
+    with torch.inference_mode():
+        _, carries = tcs.cross_scan_fwd(streams, *w, reverse, return_carries=True)
+        got = tcs.cross_scan_bwd(streams, *w, dy, reverse, carries)
+    torch.cuda.synchronize()
+    return got
+
+
+def _assert_matches_plain(got, streams, w, dy, reverse):
+    want = tcs.cross_scan_bwd_plain([s.double() for s in streams],
+                                    *(t.double() for t in w), dy.double(), reverse)
+    for name, a, b in zip(NAMES, _flat(got), _flat(want)):
+        assert a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        tol = 1e-4 if name == "d_streams" else 1e-3
+        err = (a.double() - b).abs().max().item()
+        assert err <= tol * b.abs().max().item(), (name, err)
+
+
+# (B, L): chunks of 31 steps (not a multiple of the 8-step tile) with a last
+# chunk of 22; one chunk of 5 steps, shorter than a tile; one chunk of 17,
+# one step past two tiles and pass A's 16-step tile
+TILE_EDGE_CASES = [(2, 301), (2, 5), (1, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B,L", TILE_EDGE_CASES)
+def test_cuda_backward_kernel_around_its_tiles(cuda_device, B, L, reverse):
+    """K4 where chunks and tiles do not line up, against the plain backward
+    in fp64 (d_streams 1e-4, weight gradients 1e-3 of each one's max)."""
+    G, Dh, R = 2, 32, 1
+    assert _pick_chunk(B, L, G * Dh) % 8
+    streams, *w = _inputs(cuda_device, B, L, G, Dh, R, seed=L + 40)
+    dy = torch.randn(B, L, G * Dh, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device).manual_seed(L))
+    got = _grads_of(streams, w, dy, reverse)
+    _assert_matches_plain(got, streams, w, dy, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_backward_kernel_steep_decay(cuda_device, reverse):
+    """delta near 4 and A down to -16 (and -48 at its steepest): a step's
+    decay reaches e^-190, so the chunk's products P of decays underflow to
+    zero within a few steps and the forward sum of pass A must still give
+    the chunk's entry adjoint; several chunks so that it is used."""
+    B, L, G, Dh, R = 2, 700, 2, 32, 1
+    streams, wx, wdt, dtb, A, Ds = _inputs(cuda_device, B, L, G, Dh, R, seed=21)
+    dtb = dtb + 7.0                                  # softplus(~4) ~ 4
+    A = A * 3.0
+    w = [wx, wdt, dtb, A, Ds]
+    assert _pick_chunk(B, L, G * Dh) < L
+    dy = torch.randn(B, L, G * Dh, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device).manual_seed(22))
+    got = _grads_of(streams, w, dy, reverse)
+    _assert_matches_plain(got, streams, w, dy, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,G,Dh,R", [(4, 3584, 2, 32, 1), (2, 301, 3, 64, 2)])
+def test_cuda_backward_kernel_reruns_are_bit_identical(cuda_device, B, L, G, Dh,
+                                                        R):
+    """No atomics: every sum has one order, so two runs on the same inputs
+    give the same bits in all six outputs."""
+    streams, *w = _inputs(cuda_device, B, L, G, Dh, R, seed=23)
+    dy = torch.randn(B, L, G * Dh, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device).manual_seed(24))
+    for reverse in (False, True):
+        first, second = (_flat(_grads_of(streams, w, dy, reverse)) for _ in range(2))
+        for name, a, b in zip(NAMES, first, second):
+            assert torch.equal(a, b), (reverse, name)

@@ -311,9 +311,9 @@ _PROFILED_KERNELS = {
            "float const*, float const*, float const*, float const*, float*, int)",
            "void (anonymous namespace)::chunk_kernel<8, true>(cross_scan::Streams, "
            "float const*, float const*, float const*, float const*, float*, int)"],
-    "k4": ["void (anonymous namespace)::adjoint_chunk_kernel<1>(cross_scan::Streams, "
+    "k4": ["void (anonymous namespace)::cross_walk_kernel<1>(cross_scan::Streams, "
            "float const*, float const*, float*, int)",
-           "void (anonymous namespace)::grad_chunk_kernel<8>(cross_scan::Streams, "
+           "void (anonymous namespace)::cross_grad_kernel<8>(cross_scan::Streams, "
            "float const*, float const*, float*, int)"],
     "k3_k4_carry": ["void cross_scan::carry_kernel(float const*, float*, "
                     "float const*, int, int, int)"],
