@@ -33,8 +33,10 @@ Phases, one line each (a failure anywhere exits non-zero):
      ``Predictor.initialize_from_trained_model_folder`` predicts a volume;
   8. the fused cross-scan kernels (K3 forward, K4 backward) against their
      plain versions at every scan length of the main paths, in both traversal
-     orientations (K3 at batch 4 and 12, K4 at batch 12), at L=12, a ragged
-     L and M2Net's width, with errors, times and bounds;
+     orientations (K3 at batch 4 as serving runs it, timed without carries,
+     and at batch 12 as training does, timed with them; K4 at batch 12 on
+     K3's carries), at L=12, a ragged L and M2Net's width, with errors,
+     times and bounds;
   9. one SS2D at stage-1 width with the fused glue against the default
      glue, forward and every gradient, both on the kernels;
  10. serving with the fused glue (``NNUZOO_SS2D_FUSED=1``): phase 4 again,
@@ -79,6 +81,9 @@ FUSED_PER_FORWARD = 2 * SCANS_PER_FORWARD
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+# exp2 (the special function units: 16 a clock on each of 132 SMs at the
+# 1.98 GHz boost clock; CUDA C++ Programming Guide, arithmetic instructions)
+PEAK_EXP2_PER_S = 16 * 132 * 1.98e9
 # tolerances: scan kernel vs plain, fp32 (exp2 and another association)
 SCAN_TOL = 1e-4          # max abs error / max |y|
 SS2D_TOL = 1e-4          # max abs error / max |out| for one SS2D
@@ -319,16 +324,22 @@ def cross_ops(n, r):
 
 
 def cross_bound(batch, L, g, dh, n, r, backward):
-    """Least time for one cross-scan call: the streams (and dy) read once, y
-    (or d_streams) written once, the weights read (and their gradients
-    written) once, against the operations of :func:`cross_ops`."""
+    """Least time for one cross-scan call, the largest of three: the streams
+    (and dy) read once, y (or d_streams) written once, the weights read (and
+    their gradients written) once; the operations of :func:`cross_ops` at
+    the fp32 rate; and the exp2 that the function cannot avoid, one a
+    state-step (the decay of each state), at the exp2 rate. Returns (ms,
+    what bounds it: "bytes", "operations" or "exp2")."""
     c = r + 2 * n
     weights = g * c * dh + g * dh * r + g * dh + g * dh * n + g * dh
     acts = (3 if backward else 2) * batch * L * g * dh
     nbytes = 4 * (acts + (2 if backward else 1) * weights)
     ops = batch * L * g * dh * cross_ops(n, r)[1 if backward else 0]
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    times = {"bytes": nbytes / PEAK_BYTES_PER_S,
+             "operations": ops / PEAK_FP32_PER_S,
+             "exp2": batch * L * g * dh * n / PEAK_EXP2_PER_S}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
 
 
 def cross_inputs(batch, L, g, dh, r, seed, n=N_STATE):
@@ -370,14 +381,16 @@ def phase_cross_scan_kernels():
                     torch.cuda.synchronize()
                     err = (y - want).abs().max().item()
                     scale = want.abs().max().item()
-                    ms = time_ms(lambda: cross_scan_fwd(streams, *w, reverse),
-                                 reps=20)
+                    # serving asks for no carries, training for K4's
+                    train = b == TRAIN_BATCH
+                    ms = time_ms(lambda: cross_scan_fwd(
+                        streams, *w, reverse, return_carries=train), reps=20)
                     plain_ms = time_ms(lambda: cross_scan_ref(streams, *w, reverse),
                                        reps=2, warmup=1)
                 del y, want
                 bound_ms, bound_by = cross_bound(b, L, g, dh, N_STATE, r, False)
                 row = dict(B=b, L=L, G=g, Dh=dh, R=r, reverse=reverse,
-                           max_abs_err=err, rel_err=err / scale, ms=ms,
+                           carries=train, max_abs_err=err, rel_err=err / scale, ms=ms,
                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
                 emit("cross_scan_kernel", **row)
                 if not err <= CROSS_TOL * scale:
@@ -657,16 +670,15 @@ def kernel_ms(kernels, *names, exclude=()):
 
 
 # kernel-name fragments of the scan kernels in a profile, and the fragments
-# that exclude a name: K1 (one kernel), K2 (passes A, B, C), K3 (its passes;
-# K2's pass A also ends in "chunk_kernel<"), K4 (passes A and C), and the
-# carry pass that K3 and K4 share
+# that exclude a name: K1 (one kernel), K2 (passes A, B, C), K3 (one
+# kernel), K4 (passes A and C) and K4's carry pass
 SCAN_KERNEL_NAMES = {
     "k1": (("scan_lookback_kernel",), ()),
     "k2": (("forward_chunk_kernel", "adjoint_carry_kernel", "grad_tile_kernel"),
            ()),
-    "k3": (("chunk_kernel<",), ("forward_chunk",)),
+    "k3": (("cross_fwd_tile_kernel",), ()),
     "k4": (("cross_walk_kernel<", "cross_grad_kernel<"), ()),
-    "k3_k4_carry": (("cross_scan::carry_kernel",), ()),
+    "k4_carry": (("cross_scan::carry_kernel",), ()),
 }
 
 
@@ -698,9 +710,8 @@ def profile_tile_batch(predictor, tiles, glue="default"):
         events.table(sort_by="self_cuda_time_total", row_limit=40))
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
-    names = ("k3", "k3_k4_carry") if glue == "fused" else ("k1",)
-    scan = sum(kernel_ms(kernels, *SCAN_KERNEL_NAMES[n][0],
-                         exclude=SCAN_KERNEL_NAMES[n][1]) for n in names)
+    names, exclude = SCAN_KERNEL_NAMES["k3" if glue == "fused" else "k1"]
+    scan = kernel_ms(kernels, *names, exclude=exclude)
     emit("profile", glue=glue, tile_batch_wall_ms=wall_ms, device_ms=total,
          scan_kernel_ms=scan, scan_share=scan / total if total else None,
          device_busy_share=total / wall_ms, launches=sum(e.count for e in kernels),
@@ -1020,6 +1031,7 @@ def kernel_entry(name, source, replaces, launches, rows, path, weight, per,
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **sums, "library_ms": None,
+            # an exp2 bound is one of operations (at the exp2 units' rate)
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in path)
             else "operations",
             "per": per, **more, "shapes": rows}

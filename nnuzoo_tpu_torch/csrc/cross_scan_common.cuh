@@ -1,5 +1,5 @@
 // Shared by cross_scan_fwd.cu (K3) and cross_scan_bwd.cu (K4): the
-// contract, the launch geometry and the in-kernel projections.
+// contract, the chunks of the backward and the helpers both kernels use.
 //
 // Contract, every tensor fp32 and contiguous, for G axis orders ("streams"):
 //   stream g : (B, L, Dh)        the conv output in the g-th axis order
@@ -17,12 +17,13 @@
 // where p(s) = s, or L-1-s with `reverse`: a reverse scan is the same scan
 // walked from the right, so no flipped copy exists.
 //
-// Geometry. L is cut into chunks of `chunk` steps in TRAVERSAL order (chunk i
-// holds steps [i*chunk, min((i+1)*chunk, L)), so with `reverse` the short
-// last chunk sits at the start of L). One block is one (chunk i, direction g,
-// batch b), grid (chunks, G, B), with Dh threads: thread d owns channel d and
-// keeps its N states in registers. Chunk carries and other per-chunk scratch
-// are indexed by the traversal chunk i.
+// Chunks. The backward (K4) cuts L into chunks of `chunk` steps in TRAVERSAL
+// order (chunk i holds steps [i*chunk, min((i+1)*chunk, L)), so with
+// `reverse` the short last chunk sits at the start of L); one of its blocks
+// is one (chunk i, direction g, batch b), grid (chunks, G, B), with Dh
+// threads: thread d owns channel d and keeps its N states in registers. The
+// forward (K3) writes the state entering each such chunk ("carries", indexed
+// by the traversal chunk i), which K4 starts its chunks from.
 
 #pragma once
 
@@ -55,45 +56,7 @@ __device__ __forceinline__ int position(int s, int L, bool reverse) {
   return reverse ? L - 1 - s : s;
 }
 
-// Floats of the projection's shared memory: wx_s (C, Dh+1), u_s (T, Dh+1),
-// xd_s (T, C). Rows of Dh+1 keep the threads of a warp on distinct banks.
-__host__ __device__ inline int projection_floats(int C, int Dh, int T) {
-  return C * (Dh + 1) + T * (Dh + 1) + T * C;
-}
-
-// wx[g] -> wx_s; read only after the next __syncthreads (project_tile's).
-template <int C>
-__device__ __forceinline__ void load_wx(const float* __restrict__ wx_g, float* wx_s,
-                                        int Dh) {
-  for (int o = threadIdx.x; o < C * Dh; o += blockDim.x)
-    wx_s[(o / Dh) * (Dh + 1) + o % Dh] = wx_g[o];
-}
-
-// The u rows of traversal steps s0 .. s0+tl-1 of one batch element's stream
-// (L, Dh) into u_s, and their x_dbl = wx[g] u into xd_s (one thread per
-// output, each a sum over Dh). Block-wide: synchronises before (so the
-// previous tile's readers are done) and after.
-template <int C>
-__device__ __forceinline__ void project_tile(const float* __restrict__ stream,
-                                             const float* wx_s, float* u_s,
-                                             float* xd_s, int s0, int tl, int L,
-                                             int Dh, bool reverse) {
-  __syncthreads();
-  const int d = threadIdx.x;
-  for (int j = 0; j < tl; ++j)
-    u_s[j * (Dh + 1) + d] = stream[(size_t)position(s0 + j, L, reverse) * Dh + d];
-  __syncthreads();
-  for (int o = threadIdx.x; o < tl * C; o += blockDim.x) {
-    const float* ur = u_s + (o / C) * (Dh + 1);
-    const float* wr = wx_s + (o % C) * (Dh + 1);
-    float acc = 0.f;
-    for (int k = 0; k < Dh; ++k) acc = fmaf(ur[k], wr[k], acc);
-    xd_s[o] = acc;
-  }
-  __syncthreads();
-}
-
-// delta of channel d at tile row j (xr = that row of xd_s).
+// delta of channel d at one step (xr = that step's x_dbl row, dt first).
 template <int R>
 __device__ __forceinline__ float step_delta(const float* xr, const float* wdt_r,
                                             float bias) {
@@ -111,12 +74,12 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// The carry pass over chunks, shared by the forward (the state, walked from
-// the left) and the backward (the adjoint, walked from the right): one thread
-// per (batch, n, channel c of G*Dh). `v` holds each chunk's contribution from
-// a zero entry (the forward's end states, the backward's entry adjoints);
-// the decay across chunk i is exp(A[c, n] * dsum[b, i, c]). After the pass
-// v[b, i] holds what enters chunk i from the chunks walked before it.
+// The backward's carry pass over chunks (the adjoint, walked from the right;
+// `from_right` 0 walks a state from the left): one thread per (batch, n,
+// channel c of G*Dh). `v` holds each chunk's contribution from a zero entry
+// (the backward's entry adjoints); the decay across chunk i is
+// exp(A[c, n] * dsum[b, i, c]). After the pass v[b, i] holds what enters
+// chunk i from the chunks walked before it.
 __global__ void __launch_bounds__(128)
 carry_kernel(const float* __restrict__ A, float* __restrict__ v,
              const float* __restrict__ dsum, int batch, int GD, int nchunks,

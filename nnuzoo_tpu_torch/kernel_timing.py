@@ -1,8 +1,8 @@
 """Times this checkout's selective-scan forward (K1) or backward (K2) kernel,
-or its fused cross-scan backward (K4), against the same kernel of other
-checkouts of the package, in one process on one card.
+or its fused cross-scan forward (K3) or backward (K4), against the same
+kernel of other checkouts of the package, in one process on one card.
 
-    python -m nnuzoo_tpu_torch.kernel_timing [--kernel fwd|bwd|cross_bwd] --other DIR [--other DIR ...]
+    python -m nnuzoo_tpu_torch.kernel_timing [--kernel fwd|bwd|cross_fwd|cross_bwd] --other DIR [--other DIR ...]
 
 Each DIR holds a ``nnuzoo_tpu_torch`` package from another commit (for the
 parent: ``git archive <commit> nnuzoo_tpu_torch | tar -x -C DIR``, with DIR
@@ -19,7 +19,14 @@ weighted by the calls of each length in one forward or training step.
 (batch 4, no carries) and as training does (batch 12, with the carries the
 backward starts from), y against ``scan_core_plain`` and the carries against
 its carries; ``--trace`` adds each version's per-block phases (walk 1,
-look-back, walk 2) from the kernel's trace. ``--kernel cross_bwd`` times K4
+look-back, walk 2) from the kernel's trace. ``--kernel cross_fwd`` times K3
+in both orientations as serving calls it (batch 4, no carries) and as
+training does (batch 12, with the carries K4 starts from), at the path's
+lengths, L=12 and L=1000 (G=2, Dh=32, R=1), and G=3, Dh=64, R=2 and G=2,
+Dh=256, R=8 for the errors: y against ``cross_scan_ref``, the carries
+against the first ``--other`` version's; its totals weigh each length by
+the n calls in each orientation of a serving forward and a training step.
+``--kernel cross_bwd`` times K4
 at ``--batch`` in both orientations at the path's lengths, L=12 and L=1000
 (G=2, Dh=32, R=1, from this checkout's K3 carries), with the errors of the
 d_streams and of each weight gradient against ``cross_scan_bwd_plain``, and
@@ -28,7 +35,8 @@ weighs each length by the 2n calls of a training step with the fused glue.
 Every line is JSON and also goes to ``chiprun_out/kernel_timing.jsonl``.
 Needs a CUDA card; exits non-zero without one or when a version disagrees
 with the plain version beyond 1e-4 of an output's max (for K4's weight
-gradients, sums over up to B*L positions, 1e-3).
+gradients, sums over up to B*L positions, 1e-3), or a version's K3 carries
+with the first other version's beyond 1e-4 of their max.
 """
 
 import argparse
@@ -125,10 +133,12 @@ def cases():
 
 def timed(row, versions, order, call, reps):
     """Each version's time in turns, host issue time and device time by
-    kernel, into ``row``; ``call(scan)`` makes one call of a version. Below
-    L=3584 a call is bound by the host's issue time, which spreads from run
-    to run: those turns take five times the calls."""
-    reps = reps if row["L"] >= 3584 else 5 * reps
+    kernel, into ``row``; ``call(scan)`` makes one call of a version. Up to
+    L=3584 a call's time comes near the host's issue time, which spreads from
+    run to run (a stall of the host's clock lands on both turns of a
+    version, which run one after the other): those turns take five times
+    the calls."""
+    reps = reps if row["L"] > 3584 else 5 * reps
     times = {v: [] for v in versions}
     for label in order:
         scan = versions[label][0]
@@ -182,7 +192,7 @@ CROSS_NAMES = ("d_streams", "dWx", "dWdt", "dbias", "dA", "dD")
 
 
 def cross_cases():
-    """(L, G, Dh, R) of K4's runs: the path's lengths, L=12 and L=1000 at
+    """(L, G, Dh, R) of K3's and K4's runs: the path's lengths, L=12 and L=1000 at
     M2NetP's widths, then G=3 with Dh=64 and R=2 and M2Net's width (for the
     errors; off the path, so out of the step's total)."""
     fused = (CROSS_G, CROSS_DH, CROSS_R)
@@ -240,6 +250,65 @@ def time_cross_backward(versions, order, batch, reps):
              batch, L, *fused[:2], N_STATE, fused[2], True)[0]
              for L, n in PATH_SHAPES),
          failed=failed)
+    return failed
+
+
+def time_cross_forward(versions, order, reps):
+    """K3 at the serving batch without carries and at the training batch
+    with them, both orientations; y against ``cross_scan_ref``, the carries
+    against the first other version's (this version's with no other). The
+    totals count each path length's n calls in each orientation."""
+    weight = dict(PATH_SHAPES)
+    fused = (CROSS_G, CROSS_DH, CROSS_R)
+    batches = (TILE_BATCH, TRAIN_BATCH)
+    totals = {(b, v): 0.0 for b in batches for v in versions}
+    failed = []
+    first = next(iter(versions))
+    for i, (L, g, dh, r) in enumerate(cross_cases()):
+        for batch in batches:
+            train = batch == TRAIN_BATCH
+            streams, w, _ = chip_smoke.cross_inputs(batch, L, g, dh, r,
+                                                    seed=300 + i)
+            for reverse in (False, True):
+                with torch.inference_mode():
+                    want = this_cross.cross_scan_ref(streams, *w, reverse)
+                    row = dict(B=batch, L=L, G=g, Dh=dh, R=r, reverse=reverse,
+                               carries=train,
+                               bound_ms=chip_smoke.cross_bound(
+                                   batch, L, g, dh, N_STATE, r, False)[0],
+                               err={})
+                    ref_carries = None
+                    for label in [first] + [v for v in versions if v != first]:
+                        cross = versions[label][0]
+                        y, carries = cross.cross_scan_fwd(streams, *w, reverse,
+                                                          return_carries=True)
+                        torch.cuda.synchronize()
+                        errs = dict(y=rel_error(y, want))
+                        if carries is not None:
+                            if ref_carries is None:
+                                ref_carries = carries
+                            errs["carries"] = rel_error(carries, ref_carries)
+                        row["err"][label] = errs
+                        if max(errs.values()) > TOL:
+                            failed.append((label, batch, L, g, dh, r, reverse))
+                        del y
+                    del want, ref_carries, carries
+                    timed(row, versions, order,
+                          lambda cross: cross.cross_scan_fwd(
+                              streams, *w, reverse, return_carries=train), reps)
+                emit(**row)
+                if L in weight and (g, dh, r) == fused:
+                    for v in versions:
+                        totals[batch, v] += weight[L] * row["ms"][v]
+            del streams, w
+            torch.cuda.empty_cache()
+    bound = {b: 2 * sum(n * chip_smoke.cross_bound(b, L, *fused[:2], N_STATE,
+                                                   fused[2], False)[0]
+                        for L, n in PATH_SHAPES) for b in batches}
+    emit(serving_forward_ms={v: totals[TILE_BATCH, v] for v in versions},
+         serving_forward_bound_ms=bound[TILE_BATCH],
+         step_weighted_ms={v: totals[TRAIN_BATCH, v] for v in versions},
+         step_bound_ms=bound[TRAIN_BATCH], failed=failed)
     return failed
 
 
@@ -349,7 +418,7 @@ def forward_trace(scan, build, batch, L):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("fwd", "bwd", "cross_bwd"),
+    parser.add_argument("--kernel", choices=("fwd", "bwd", "cross_fwd", "cross_bwd"),
                         default="bwd")
     parser.add_argument("--other", action="append", default=[],
                         help="a directory holding another nnuzoo_tpu_torch")
@@ -371,6 +440,7 @@ def main(argv=None):
     module, this, source = {
         "fwd": ("selective_scan", this_scan, "selective_scan_fwd"),
         "bwd": ("selective_scan", this_scan, "selective_scan_bwd"),
+        "cross_fwd": ("cross_scan", this_cross, "cross_scan_fwd"),
         "cross_bwd": ("cross_scan", this_cross, "cross_scan_bwd"),
     }[args.kernel]
     versions = {}
@@ -395,6 +465,8 @@ def main(argv=None):
                             emit(version=label, trace=phases)
                 torch.cuda.empty_cache()
         failed = time_forward(versions, order, args.reps)
+    elif args.kernel == "cross_fwd":
+        failed = time_cross_forward(versions, order, args.reps)
     elif args.kernel == "cross_bwd":
         failed = time_cross_backward(versions, order, args.batch, args.reps)
     else:

@@ -12,7 +12,8 @@ memory; the backward keeps each step's x_dbl in its scratch for the call.
 - :func:`cross_scan_ref`: the plain forward, the JAX oracle's math over the
   port's plain scan; autograd goes through it.
 - :func:`cross_scan_fwd`: on a CUDA tensor the hand-written kernel
-  ``csrc/cross_scan_fwd.cu``; on a CPU tensor :func:`cross_scan_ref`.
+  ``csrc/cross_scan_fwd.cu`` (with the chunk carries the backward starts
+  from only when asked); on a CPU tensor :func:`cross_scan_ref`.
 - :func:`cross_scan_bwd`: its gradients; on CUDA tensors
   ``csrc/cross_scan_bwd.cu``, on CPU tensors :func:`cross_scan_bwd_plain`.
 - :func:`cross_scan_fused`: the entry SS2D uses, differentiable.
@@ -29,12 +30,15 @@ from typing import Optional, Sequence
 import torch
 
 from .. import _build
-from .selective_scan import _pick_chunk, selective_scan_blkd
+from .selective_scan import (_FWD_SMEM_MAX, _aligned, _fwd_scratch_layout,
+                             _pick_chunk, selective_scan_blkd)
 
 KERNEL_STATE_SIZE = 16
 KERNEL_MAX_RANK = 8
 KERNEL_GROUPS = (2, 3)
 KERNEL_MAX_DH = 256
+# the forward kernel's most channels of a block
+_FWD_BLOCK = 256
 
 
 # ------------------------------------------------------------------ plain
@@ -87,18 +91,25 @@ def cross_scan_bwd_plain(streams, x_proj_weight, dt_weight, dt_bias, A, Ds, dy,
 
 
 # ------------------------------------------------------------------ kernels
-_fwd_fn = None
+_fwd_fns = None
 _bwd_fns = None
 
 
-def _fwd_kernel_fn():
-    global _fwd_fn
-    if _fwd_fn is None:
-        fn = _build.load("cross_scan_fwd").nnuzoo_cross_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+def _fwd_kernel_fns():
+    """(the forward's entry, its steps a tile, its tiles a look-back group)."""
+    global _fwd_fns
+    if _fwd_fns is None:
+        lib = _build.load("cross_scan_fwd")
+        fn = lib.nnuzoo_cross_scan_fwd
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fwd_fn = fn
-    return _fwd_fn
+        sizes = []
+        for name in ("nnuzoo_cross_scan_fwd_tile", "nnuzoo_cross_scan_fwd_group"):
+            size = getattr(lib, name)
+            size.argtypes, size.restype = [], ctypes.c_int
+            sizes.append(size())
+        _fwd_fns = (fn, *sizes)
+    return _fwd_fns
 
 
 def _bwd_kernel_fns():
@@ -174,29 +185,77 @@ def _stream_ptrs(tensors):
     return [t.data_ptr() for t in tensors] + [None] * (3 - len(tensors))
 
 
+def _cross_fwd_plan(batch, L, G, Dh, R, tile, group, N=KERNEL_STATE_SIZE):
+    """The forward kernel's launch for tiles of ``tile`` steps in look-back
+    groups of ``group`` tiles, as the C entry makes it: {ntiles, ngroups,
+    dirs (directions a block: as many as fit in 256 channels), ncb (column
+    blocks), threads, blocks, smem (bytes of a block's shared memory: each
+    direction's u rows of the tile, wx in rows of Dh+4 and the tile's x_dbl
+    in rows of R rounded up to 4, + 2N)}. Raises on a shape that does not
+    fit."""
+    if Dh % 32 or not 32 <= Dh <= _FWD_BLOCK:
+        raise ValueError(f"the forward cross-scan kernel takes Dh a multiple of "
+                         f"32 up to {_FWD_BLOCK}, got Dh={Dh}")
+    dirs = min(G, _FWD_BLOCK // Dh)
+    row = -(-R // 4) * 4 + 2 * N
+    smem = 4 * dirs * (tile * Dh + (R + 2 * N) * (Dh + 4) + tile * row)
+    if smem > _FWD_SMEM_MAX:
+        raise ValueError(f"a {tile}-step tile of {dirs} directions of Dh={Dh} "
+                         f"with R={R} needs {smem} bytes of shared memory, more "
+                         f"than a block has ({_FWD_SMEM_MAX})")
+    ntiles = math.ceil(L / tile)
+    ncb = math.ceil(G / dirs)
+    return dict(ntiles=ntiles, ngroups=math.ceil(ntiles / group), dirs=dirs,
+                ncb=ncb, threads=dirs * Dh, blocks=batch * ntiles * ncb, smem=smem)
+
+
+@functools.lru_cache(maxsize=256)
+def _cross_fwd_launch(batch, L, G, Dh, R, tile, group):
+    """(chunk, chunks, the offsets in floats of the scratch pieces in the
+    order the C entry takes them, the scratch's size): one shape's plan and
+    layout, kept, since at small L the wrapper's host time sets the call's.
+    The look-back's scratch is the selective-scan forward's, over G*Dh
+    channels (:func:`_fwd_scratch_layout`: flags and ticket, then the tiles'
+    and the groups' aggregates); the chunks are the backward's, whose entry
+    states the forward writes when asked."""
+    plan = _cross_fwd_plan(batch, L, G, Dh, R, tile, group)
+    layout, total = _fwd_scratch_layout(batch, plan["ntiles"], plan["ngroups"],
+                                        plan["ncb"], KERNEL_STATE_SIZE, G * Dh)
+    chunk = _pick_chunk(batch, L, G * Dh)
+    return (chunk, math.ceil(L / chunk), tuple(off for off, _ in layout.values()),
+            total)
+
+
 def _cross_scan_fwd_cuda(streams, x_proj_weight, dt_weight, dt_bias, A, Ds,
-                         reverse):
-    """Launch the forward kernel: (y, carries), carries the state entering
-    each traversal chunk, (B, chunks, N, G*Dh), or None with one chunk."""
+                         reverse, carries: bool = False):
+    """Launch the forward kernel: (y, carries). ``carries``: also write the
+    state entering each traversal chunk of the backward, (B, chunks, N,
+    G*Dh), or None with one chunk; else None and the kernel writes none."""
     batch, L, G, Dh, R = _check_kernel_inputs(streams, x_proj_weight, dt_weight,
                                               dt_bias, A, Ds)
     N = KERNEL_STATE_SIZE
     dev = streams[0].device
-    chunk = _pick_chunk(batch, L, G * Dh)
-    nchunks = math.ceil(L / chunk)
+    fn, tile, group = _fwd_kernel_fns()
+    chunk, nchunks, offsets, total = _cross_fwd_launch(batch, L, G, Dh, R, tile,
+                                                       group)
+    # the copy engine moves the u rows and float4 loads read wx
+    streams = [_aligned(s) for s in streams]
+    x_proj_weight = _aligned(x_proj_weight)
     y = torch.empty(batch, L, G * Dh, device=dev)
-    states = dsum = None
-    if nchunks > 1:
+    states = None
+    if carries and nchunks > 1:
         states = torch.empty(batch, nchunks, N, G * Dh, device=dev)
-        dsum = torch.empty(batch, nchunks, G * Dh, device=dev)
-    fn = _fwd_kernel_fn()
+    # one allocation for the look-back's flags and states, handed out as
+    # pointers
+    scratch = torch.empty(total, device=dev)
+    base = scratch.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*_stream_ptrs(streams), x_proj_weight.data_ptr(),
                 dt_weight.data_ptr(), dt_bias.data_ptr(), A.data_ptr(),
                 Ds.data_ptr(), y.data_ptr(),
                 states.data_ptr() if states is not None else None,
-                dsum.data_ptr() if dsum is not None else None,
+                *(base + 4 * off for off in offsets),
                 batch, L, G, Dh, R, N, chunk, int(reverse), stream)
     if rc != 0:
         raise RuntimeError(f"cross_scan_fwd kernel launch failed with CUDA error "
@@ -212,13 +271,16 @@ def cross_scan_fwd(streams, x_proj_weight, dt_weight, dt_bias, A, Ds,
 
     On CUDA tensors this launches ``csrc/cross_scan_fwd.cu`` on the current
     stream and counts the launch in ``cross_scan_fwd.launches``; it raises on
-    anything the kernel does not take. With ``return_carries`` it also
-    returns the state entering each traversal chunk (B, chunks, N, G*Dh), or
-    None with one chunk, which :func:`cross_scan_bwd` starts from. On CPU
-    tensors it runs :func:`cross_scan_ref` (which has no carries)."""
+    anything the kernel does not take. With ``return_carries`` the kernel
+    also writes the state entering each traversal chunk (B, chunks, N,
+    G*Dh), or None with one chunk, which :func:`cross_scan_bwd` starts from,
+    and they are returned as (y, carries); without it the kernel writes
+    none. On CPU tensors it runs :func:`cross_scan_ref` (which has no
+    carries)."""
     if streams[0].device.type == "cuda":
         y, carries = _cross_scan_fwd_cuda(streams, x_proj_weight, dt_weight,
-                                          dt_bias, A, Ds, reverse)
+                                          dt_bias, A, Ds, reverse,
+                                          carries=return_carries)
         return (y, carries) if return_carries else y
     if return_carries:
         raise ValueError("chunk carries come from the CUDA kernel only")
@@ -357,10 +419,15 @@ class _CrossScan(torch.autograd.Function):
     forward kernel's chunk carries go to the backward kernel."""
 
     @staticmethod
-    def forward(ctx, reverse, x_proj_weight, dt_weight, dt_bias, A, Ds, *streams):
+    def forward(ctx, reverse, grad_enabled, x_proj_weight, dt_weight, dt_bias, A,
+                Ds, *streams):
         weights = (x_proj_weight, dt_weight, dt_bias, A, Ds)
         if streams[0].device.type == "cuda":
-            y, carries = _cross_scan_fwd_cuda(streams, *weights, reverse)
+            # the carries only where a backward can follow (``grad_enabled``
+            # is the caller's grad mode: inside forward it is always off)
+            y, carries = _cross_scan_fwd_cuda(
+                streams, *weights, reverse,
+                carries=grad_enabled and any(ctx.needs_input_grad[2:]))
         else:
             y, carries = cross_scan_ref(streams, *weights, reverse), None
         ctx.reverse = reverse
@@ -374,7 +441,7 @@ class _CrossScan(torch.autograd.Function):
         weights, carries, streams = saved[:5], saved[5], saved[6:]
         d_streams, *d_weights = cross_scan_bwd(streams, *weights, dy.contiguous(),
                                                ctx.reverse, carries)
-        return (None, *d_weights, *d_streams)
+        return (None, None, *d_weights, *d_streams)
 
 
 class _CrossScanPlainPair(torch.autograd.Function):
@@ -417,7 +484,8 @@ def cross_scan_fused(streams: Sequence[torch.Tensor], x_proj_weight, dt_weight,
     streams = [s.contiguous() for s in streams]
     weights = [t.contiguous() for t in (x_proj_weight, dt_weight, dt_bias, A, Ds)]
     if backend is None:
-        return _CrossScan.apply(reverse, *weights, *streams)
+        return _CrossScan.apply(reverse, torch.is_grad_enabled(), *weights,
+                                *streams)
     if backend == "plain":
         return cross_scan_ref(streams, *weights, reverse)
     if backend == "plain_pair":

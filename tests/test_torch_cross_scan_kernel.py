@@ -19,7 +19,8 @@ torch = pytest.importorskip("torch")
 
 from nnuzoo_tpu_torch.models import ss2d as tss2d  # noqa: E402
 from nnuzoo_tpu_torch.ops import cross_scan as tcs  # noqa: E402
-from nnuzoo_tpu_torch.ops.selective_scan import _pick_chunk  # noqa: E402
+from nnuzoo_tpu_torch.ops.selective_scan import (  # noqa: E402
+    _fwd_scratch_layout, _pick_chunk, scan_core_plain)
 
 NAMES = ("d_streams", "dWx", "dWdt", "dbias", "dA", "dD")
 
@@ -189,6 +190,66 @@ def test_one_sum_over_packed_partials_gives_the_five_sums(G, Dh, R):
         assert torch.equal(g, parts[name].sum((0, 1))), name
 
 
+# ------------------------------------------------------- forward plan (K3)
+@pytest.mark.parametrize("B,L,G,Dh,R,want", [
+    # M2NetP's longest level, training and serving: both directions a block
+    (12, 57344, 2, 32, 1, dict(ntiles=1195, ngroups=150, dirs=2, ncb=1,
+                               threads=64, blocks=14340, smem=35616)),
+    (4, 57344, 2, 32, 1, dict(ntiles=1195, ngroups=150, dirs=2, ncb=1,
+                              threads=64, blocks=4780, smem=35616)),
+    # one step, one tile
+    (2, 1, 2, 32, 1, dict(ntiles=1, ngroups=1, dirs=2, ncb=1, threads=64,
+                          blocks=2, smem=35616)),
+    # G=3 with Dh=64 and R=2: three directions, 192 channels
+    (2, 301, 3, 64, 2, dict(ntiles=7, ngroups=1, dirs=3, ncb=1, threads=192,
+                            blocks=14, smem=85344)),
+    # M2Net's width: one direction a block, two column blocks
+    (12, 56, 2, 256, 8, dict(ntiles=2, ngroups=1, dirs=1, ncb=2, threads=256,
+                             blocks=48, smem=98432)),
+    # G=3 with Dh=128: the second column block holds one direction of two
+    (1, 1000, 3, 128, 1, dict(ntiles=21, ngroups=3, dirs=2, ncb=2, threads=256,
+                              blocks=42, smem=2 * 4 * (48 * 128 + 33 * 132 + 48 * 36))),
+])
+def test_cross_forward_plan(B, L, G, Dh, R, want):
+    """The forward kernel's launch: blocks of one (batch, 48-step tile) over
+    as many directions as fit in 256 channels, tiles in look-back groups of
+    8, and each direction's u rows, wx and x_dbl in shared memory (the C
+    entry makes the same plan)."""
+    assert tcs._cross_fwd_plan(B, L, G, Dh, R, 48, 8) == want
+
+
+def test_cross_forward_plan_raises_on_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tcs._cross_fwd_plan(2, 100, 2, 48, 1, 48, 8)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tcs._cross_fwd_plan(2, 100, 2, 512, 1, 48, 8)
+    # a tile of 512 steps of Dh=256 does not fit in a block's shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        tcs._cross_fwd_plan(2, 1000, 2, 256, 8, 512, 8)
+
+
+def test_cross_forward_launch_is_the_plan_and_layout_in_argument_order():
+    """The wrapper's kept launch of a shape: the backward's chunks, the
+    offsets of the look-back scratch's pieces (the selective-scan forward's
+    layout over G*Dh channels and the plan's column blocks) in the order of
+    the C entry's pointers, and the allocation's size."""
+    B, L, G, Dh, R, tile, group = 12, 57344, 2, 32, 1, 48, 8
+    chunk, nchunks, offsets, total = tcs._cross_fwd_launch(B, L, G, Dh, R, tile,
+                                                           group)
+    plan = tcs._cross_fwd_plan(B, L, G, Dh, R, tile, group)
+    layout, want_total = _fwd_scratch_layout(
+        B, plan["ntiles"], plan["ngroups"], plan["ncb"], 16, G * Dh)
+    assert (chunk, nchunks) == (_pick_chunk(B, L, G * Dh),
+                                math.ceil(L / _pick_chunk(B, L, G * Dh)))
+    assert total == want_total
+    assert offsets == tuple(layout[name][0] for name in
+                            ("flags", "agg", "agg_dsum", "gagg", "gdsum", "gincl"))
+    assert tcs._cross_fwd_launch(B, L, G, Dh, R, tile, group) is \
+        tcs._cross_fwd_launch(B, L, G, Dh, R, tile, group)
+    with pytest.raises(ValueError, match="shared memory"):
+        tcs._cross_fwd_launch(2, 1000, 2, 256, 8, 512, group)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -198,9 +259,11 @@ def cuda_device():
 
 
 # (B, L, G, Dh, R): one chunk shorter than a tile; two chunks; a ragged last
-# chunk and tile; G=3 with Dh=64 and R=2; M2Net's width; a long level
+# chunk and tile; G=3 with Dh=64 and R=2; M2Net's width; a long level; and
+# K4's chunks of 32 and 30 steps across the forward's 48-step tiles
 CUDA_CASES = [(2, 12, 2, 32, 1), (2, 56, 2, 32, 1), (2, 1000, 2, 32, 1),
-              (2, 301, 3, 64, 2), (2, 56, 2, 256, 8), (4, 3584, 2, 32, 1)]
+              (2, 301, 3, 64, 2), (2, 56, 2, 256, 8), (4, 3584, 2, 32, 1),
+              (12, 3584, 2, 32, 1), (2, 385, 2, 32, 1)]
 
 
 @pytest.mark.cuda
@@ -391,3 +454,134 @@ def test_cuda_backward_kernel_reruns_are_bit_identical(cuda_device, B, L, G, Dh,
         first, second = (_flat(_grads_of(streams, w, dy, reverse)) for _ in range(2))
         for name, a, b in zip(NAMES, first, second):
             assert torch.equal(a, b), (reverse, name)
+
+
+# ------------------------------------------------------- forward kernel (K3)
+def _plain_with_carries(streams, w, reverse, chunk):
+    """y and the state entering each traversal chunk of ``chunk`` steps, in
+    fp64, from the plain scan of the traversal (``scan_core_plain``): the
+    reference of the forward kernel's carries."""
+    wx, wdt, dtb, A, Ds = (t.double() for t in w)
+    G, N = len(streams), A.shape[1]
+    R = wx.shape[1] - 2 * N
+    xs = torch.stack([s.double() for s in streams], 2)          # (B, L, G, Dh)
+    if reverse:
+        xs = xs.flip(1)
+    B, L, _, Dh = xs.shape
+    x_dbl = torch.einsum("blgd,gcd->blgc", xs, wx)
+    dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
+    delta = torch.nn.functional.softplus(
+        torch.einsum("blgr,gdr->blgd", dts, wdt) + dtb)
+    bc = torch.cat([Bs, Cs], -1).reshape(B, L, G * 2 * N)
+    u = xs.reshape(B, L, G * Dh)
+    y, carries = scan_core_plain(u, delta.reshape(B, L, G * Dh), A.t(), bc,
+                                 chunk=chunk, return_carries=True)
+    y = y + u * Ds
+    return (y.flip(1) if reverse else y), carries
+
+
+def _check_forward(streams, w, reverse):
+    """The forward kernel with carries, synchronised: y against the plain
+    forward in fp64 (1e-4 of max|y|) and the carries against the plain
+    scan's chunk-entry states (1e-4 of their max); y without carries the
+    same bits as with them."""
+    B, L, Dh = streams[0].shape
+    G = len(streams)
+    chunk = _pick_chunk(B, L, G * Dh)
+    with torch.inference_mode():
+        y, carries = tcs.cross_scan_fwd(streams, *w, reverse, return_carries=True)
+        y_serving = tcs.cross_scan_fwd(streams, *w, reverse)
+        torch.cuda.synchronize()
+    want, want_carries = _plain_with_carries(streams, w, reverse, chunk)
+    assert torch.isfinite(y).all()
+    err = (y.double() - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+    assert torch.equal(y, y_serving)
+    if want_carries.shape[1] == 1:
+        assert carries is None
+    else:
+        assert carries.shape == want_carries.shape
+        err = (carries.double() - want_carries).abs().max().item()
+        assert err <= 1e-4 * want_carries.abs().max().item(), err
+    return y, carries
+
+
+# L around the 48-step tile and the 8-tile look-back group: one step short
+# of a tile, a tile, one past it; one short of a group, a group, one past it
+TILE = 48
+FWD_EDGE_LENGTHS = [1, TILE - 1, TILE, TILE + 1, 8 * TILE - 1, 8 * TILE,
+                    8 * TILE + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("L", FWD_EDGE_LENGTHS)
+def test_cuda_forward_kernel_around_its_tile(cuda_device, L, reverse):
+    """K3 where L meets a tile's or a group's edge, y and the carries
+    against the plain scan in fp64."""
+    assert tcs._fwd_kernel_fns()[1:] == (TILE, 8)
+    streams, *w = _inputs(cuda_device, 3, L, 2, 32, 1, seed=L + 60)
+    _check_forward(streams, w, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_forward_kernel_deep_look_back(cuda_device, reverse):
+    """Many groups in each chain (B=12, L=57344: 150 groups of 8 tiles), so
+    the look-back meets every state a predecessor can be in."""
+    streams, *w = _inputs(cuda_device, 12, 57344, 2, 32, 1, seed=61)
+    _check_forward(streams, w, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_forward_kernel_steep_decay(cuda_device, reverse):
+    """delta near 4 and A down to -48: a step's decay reaches e^-190, below
+    ex2's flush to zero, and the aggregates across tiles and groups
+    underflow; y and the carries still agree."""
+    streams, wx, wdt, dtb, A, Ds = _inputs(cuda_device, 2, 3000, 2, 32, 1, seed=62)
+    w = [wx, wdt, dtb + 7.0, A * 3.0, Ds]
+    _check_forward(streams, w, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,G,Dh,R", [(12, 14336, 2, 32, 1), (2, 1000, 3, 128, 1),
+                                        (2, 301, 3, 64, 2)])
+def test_cuda_forward_kernel_reruns_are_bit_identical(cuda_device, B, L, G, Dh, R):
+    """The look-back applies the aggregates one at a time whichever
+    predecessor it met, so reruns give the same bits, y and carries, and
+    the column blocks of a wide shape agree with the plain version."""
+    streams, *w = _inputs(cuda_device, B, L, G, Dh, R, seed=63)
+    for reverse in (False, True):
+        y, carries = _check_forward(streams, w, reverse)
+        with torch.inference_mode():
+            for _ in range(2):
+                y2, carries2 = tcs.cross_scan_fwd(streams, *w, reverse,
+                                                  return_carries=True)
+                assert torch.equal(y, y2) and torch.equal(carries, carries2)
+
+
+@pytest.mark.cuda
+def test_cuda_serving_writes_no_carries(cuda_device, monkeypatch):
+    """``cross_scan_fused`` asks the kernel for carries only where a
+    backward can follow: not under ``torch.inference_mode()`` or
+    ``torch.no_grad()`` (as the Predictor runs), nor when no input needs a
+    gradient; y is the same either way."""
+    asked = []
+    launch = tcs._cross_scan_fwd_cuda
+
+    def spy(*a, carries=False):
+        asked.append(carries)
+        return launch(*a, carries=carries)
+
+    monkeypatch.setattr(tcs, "_cross_scan_fwd_cuda", spy)
+    streams, *w = _inputs(cuda_device, 2, 700, 2, 32, 1, seed=64)
+    leaves = [t.clone().requires_grad_() for t in (*streams, *w)]
+    with torch.inference_mode():
+        y_serving = tcs.cross_scan_fused(leaves[:2], *leaves[2:], True)
+    with torch.no_grad():
+        tcs.cross_scan_fused(leaves[:2], *leaves[2:], True)
+    tcs.cross_scan_fused(streams, *w, True)
+    y = tcs.cross_scan_fused(leaves[:2], *leaves[2:], True)
+    assert asked == [False, False, False, True]
+    assert torch.equal(y.detach(), y_serving)

@@ -307,16 +307,20 @@ _PROFILED_KERNELS = {
            "void (anonymous namespace)::grad_tile_kernel<16>(float const*, "
            "float const*, float const*, float const*, float const*, float const*, "
            "float const*, float*, float*, float*, float*, int, int, int, int, int, int)"],
-    "k3": ["void (anonymous namespace)::chunk_kernel<1, false>(cross_scan::Streams, "
-           "float const*, float const*, float const*, float const*, float*, int)",
-           "void (anonymous namespace)::chunk_kernel<8, true>(cross_scan::Streams, "
-           "float const*, float const*, float const*, float const*, float*, int)"],
+    "k3": ["void (anonymous namespace)::cross_fwd_tile_kernel<1>(cross_scan::Streams, "
+           "float const*, float const*, float const*, float const*, float const*, "
+           "float*, float*, int*, unsigned int*, float*, float*, float*, float*, "
+           "float*, int, int, int, int, int, int, int, int, int)",
+           "void (anonymous namespace)::cross_fwd_tile_kernel<8>(cross_scan::Streams, "
+           "float const*, float const*, float const*, float const*, float const*, "
+           "float*, float*, int*, unsigned int*, float*, float*, float*, float*, "
+           "float*, int, int, int, int, int, int, int, int, int)"],
     "k4": ["void (anonymous namespace)::cross_walk_kernel<1>(cross_scan::Streams, "
            "float const*, float const*, float*, int)",
            "void (anonymous namespace)::cross_grad_kernel<8>(cross_scan::Streams, "
            "float const*, float const*, float*, int)"],
-    "k3_k4_carry": ["void cross_scan::carry_kernel(float const*, float*, "
-                    "float const*, int, int, int)"],
+    "k4_carry": ["void cross_scan::carry_kernel(float const*, float*, "
+                 "float const*, int, int, int)"],
 }
 
 
@@ -410,12 +414,16 @@ def test_forward_plan_raises_on_what_the_kernel_does_not_take():
 
 
 @pytest.mark.parametrize("B,ntiles,ngroups,ncb,KD", [
-    (12, 1792, 224, 1, 128), (2, 1, 1, 1, 96), (1, 5, 1, 1, 32), (3, 11, 2, 8, 1024)])
+    (12, 1792, 224, 1, 128), (2, 1, 1, 1, 96), (1, 5, 1, 1, 32), (3, 11, 2, 8, 1024),
+    # the fused cross-scan forward's, over G*Dh channels: M2NetP's longest
+    # level, and M2Net's width in two column blocks
+    (12, 1195, 150, 1, 64), (12, 2, 1, 2, 512)])
 def test_forward_scratch_layout(B, ntiles, ngroups, ncb, KD):
-    """The forward's look-back scratch: the flags (one a block, one a group
-    and column block) and the ticket first, then each tile's aggregate (end
-    state and sum of delta), each group's, and each group's inclusive state;
-    each piece holds its count, starts on a 16-byte boundary and overlaps no
+    """The forward's look-back scratch (the selective-scan and the fused
+    cross-scan forward's): the flags (one a block, one a group and column
+    block) and the ticket first, then each tile's aggregate (end state and
+    sum of delta), each group's, and each group's inclusive state; each
+    piece holds its count, starts on a 16-byte boundary and overlaps no
     other."""
     N = 16
     layout, total = tscan._fwd_scratch_layout(B, ntiles, ngroups, ncb, N, KD)
