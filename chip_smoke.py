@@ -28,28 +28,42 @@ Phases, one line each (a failure anywhere exits non-zero):
      scan launches per step and peak memory;
   6. one training step's loss and gradients, kernel path and fp32 plain path
      from the same weights and batch, each against the plain path in fp64,
-     at full depth and at stage layers (1, 1, 1, 1);
+     for M2NetP with weights drawn from a fixed seed: at stage layers
+     (1, 1, 1, 1) on phase 5's last batch, and at full depth on a batch that
+     a sampler with a fixed seed draws from phase 5's dataset (not the
+     trained weights, which differ from run to run: training is not
+     bit-reproducible on the card);
   7. the checkpoint of phase 5 loaded through
      ``Predictor.initialize_from_trained_model_folder`` predicts a volume;
-  8. the fused cross-scan kernels (K3 forward, K4 backward) against their
+  8. the file-to-file paths on phase 5's model: its final validation
+     (``Trainer.perform_actual_validation``, segmentations written through
+     the plans' NIfTI writer and scored against ``gt_segmentations``), then
+     the command line's ``predict`` entry on a seeded raw folder of two
+     1x4x224x256 ``.nii.gz`` cases from phase 5's results folder, each
+     written segmentation held to ``predict_single_npy_array`` on the same
+     image, and its ``evaluate_folder`` entry against the labels; seconds per
+     case (read, preprocess, device, export), K1 launches and Dice;
+  9. the fused cross-scan kernels (K3 forward, K4 backward) against their
      plain versions at every scan length of the main paths, in both traversal
      orientations (K3 at batch 4 as serving runs it, timed without carries,
      and at batch 12 as training does, timed with them; K4 at batch 12 on
      K3's carries), at L=12, a ragged L and M2Net's width, with errors,
      times and bounds;
-  9. one SS2D at stage-1 width with the fused glue against the default
+ 10. one SS2D at stage-1 width with the fused glue against the default
      glue, forward and every gradient, both on the kernels;
- 10. serving with the fused glue (``NNUZOO_SS2D_FUSED=1``): phase 4 again,
+ 11. serving with the fused glue (``NNUZOO_SS2D_FUSED=1``): phase 4 again,
      160 K3 launches and no K1 launch per forward;
- 11. training with the fused glue: phase 5 again, 160 K3 and 160 K4
+ 12. training with the fused glue: phase 5 again, 160 K3 and 160 K4
      launches and no K1/K2 launch per step, then one step at stage layers
      (1, 1, 1, 1) against fp64 as in phase 6;
- 12. one JSON line ``{"kernels": [...]}`` listing K1-K4;
- 13. last line ``{"ok": true, "device": {...}}``.
+ 13. phase 8 with the fused glue: K3 launches and no K1 launch;
+ 14. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
+     on every path;
+ 15. last line ``{"ok": true, "device": {...}}``.
 Every line is also written to ``chiprun_out/chip_smoke.jsonl``.
 ``--profile`` adds torch.profiler tables of one tile batch and of one
 training step under ``chiprun_out/``, for each glue. fp32 throughout (but
-for the fp64 references of phases 4, 6, 10 and 11), TF32 off for matmuls and
+for the fp64 references of phases 4, 6, 11 and 12), TF32 off for matmuls and
 convolutions.
 """
 
@@ -110,6 +124,7 @@ SS2D_GRAD_TOL = 1e-3
 CROSS_TOL = 1e-4
 CROSS_WEIGHT_GRAD_TOL = 1e-3
 STEP_BATCH = 4           # batch of the one-step comparison (fp64 must fit too)
+STEP_SEED = 1            # its weights, and the full-depth check's batch
 # one training step of M2NetP with random weights: the loss and every
 # parameter's gradient from each fp32 path (kernel, plain) against the plain
 # path in fp64. Keys: |loss - fp64 loss| / |fp64 loss|; the norm of the whole
@@ -123,7 +138,10 @@ STEP_BATCH = 4           # batch of the one-step comparison (fp64 must fit too)
 # parameter 0.15-0.37 and 0.18-0.45. The limits sit about 2x outside the
 # most that the fp32 plain path read. In that regime either fp32 path may
 # land nearer to fp64: the kernel path's error norm read 0.35x to 1.39x the
-# plain path's over four runs, and is held to 3x.
+# plain path's over four runs, and is held to 3x. Those readings were of the
+# trained weights; the check now runs on weights and a batch drawn from
+# STEP_SEED, where an H100 reads 3.2e-6, 0.114 and 0.099 on the kernel path
+# and 6.2e-6, 0.167 and 0.141 on the fp32 plain path (0.68x), run after run.
 STEP_LIMITS = {"loss_rel_err": 2e-4, "grad_rel_err_norm": 2.5,
                "median_param_rel_err": 1.0, "kernel_over_plain": 3.0}
 # at stage layers (1, 1, 1, 1), same widths, fp32 is well conditioned
@@ -134,6 +152,10 @@ SHALLOW_STEP_LIMITS = {"loss_rel_err": 2e-6, "grad_rel_err_norm": 1e-2,
                        "median_param_rel_err": 1e-2, "kernel_over_plain": 2.0}
 STEP_LIVE_GRAD = 1e-6    # a parameter counts if its fp64 gradient reaches this
                          # share of the largest gradient entry
+# the SS2D parameters whose gradients come out of the scan kernels' backward
+# (dA, dD, and through d_delta and dB/dC the dt and x projections): each
+# reading says what share of a path's squared gradient error sits in them
+SCAN_PARAMS = ("A_logs", "Ds", "dt_projs_weight", "dt_projs_bias", "x_proj_weight")
 
 
 LOG = ROOT / "chiprun_out" / "chip_smoke.jsonl"
@@ -543,6 +565,7 @@ def plans_and_dataset():
     plans = {
         "dataset_name": "Dataset999_BenchAbdomenMR", "plans_name": "nnUNetPlans",
         "transpose_forward": [0, 1, 2], "transpose_backward": [0, 1, 2],
+        "image_reader_writer": "NiftiIO",
         "foreground_intensity_properties_per_channel": {},
         "configurations": {"2d": {
             "data_identifier": "nnUNetPlans_2d", "batch_size": 12,
@@ -718,19 +741,31 @@ def profile_tile_batch(predictor, tiles, glue="default"):
          table=table)
 
 
+def blob_labels(rs, shape, block):
+    """Smooth seeded label blobs 0..2 of ``shape`` (z, y, x), constant over
+    ``block`` x ``block`` squares."""
+    import numpy as np
+    coarse = rs.rand(shape[0], shape[1] // block, shape[2] // block)
+    field = np.kron(coarse, np.ones((1, block, block)))
+    return np.digitize(field, [0.6, 0.85]).astype(np.int16)
+
+
 def write_dataset(folder, cases=3, shape=(8, 280, 320), seed=0):
     """A seeded preprocessed 2d dataset in the format ``DatasetNumpy`` reads:
     per case ``.npz`` {data (1, z, y, x) float32, seg (1, z, y, x) int16 with
-    labels 0..2} and ``.pkl`` properties with ``class_locations``. The labels
-    are smooth blobs that the intensities follow, so there is something to
-    learn."""
+    labels 0..2} and ``.pkl`` properties with ``class_locations`` and the
+    geometry that export needs (nothing cropped, nothing resampled), and the
+    segmentation in ``../gt_segmentations`` as the final validation reads it.
+    The labels are smooth blobs that the intensities follow, so there is
+    something to learn."""
     import numpy as np
+    from nnuzoo_tpu_torch.imageio.nifti import NiftiIO
+    gt = os.path.join(os.path.dirname(folder), "gt_segmentations")
     os.makedirs(folder)
+    os.makedirs(gt)
     rs = np.random.RandomState(seed)
     for i in range(cases):
-        coarse = rs.rand(shape[0], shape[1] // 40, shape[2] // 40)
-        field = np.kron(coarse, np.ones((1, 40, 40)))
-        seg = np.digitize(field, [0.6, 0.85]).astype(np.int16)[None]
+        seg = blob_labels(rs, shape, 40)[None]
         data = (seg + 0.5 * rs.randn(1, *shape)).astype(np.float32)
         locations = {}
         for label in (1, 2):
@@ -739,14 +774,39 @@ def write_dataset(folder, cases=3, shape=(8, 280, 320), seed=0):
                                                replace=False)]
         np.savez_compressed(os.path.join(folder, f"case_{i:03d}.npz"),
                             data=data, seg=seg)
+        props = {"class_locations": locations, "spacing": [3.0, 1.0, 1.0],
+                 "shape_before_cropping": shape,
+                 "bbox_used_for_cropping": [[0, s] for s in shape],
+                 "shape_after_cropping_and_before_resampling": shape}
         with open(os.path.join(folder, f"case_{i:03d}.pkl"), "wb") as f:
-            pickle.dump({"class_locations": locations,
-                         "spacing": [3.0, 1.0, 1.0]}, f)
+            pickle.dump(props, f)
+        NiftiIO().write_seg(seg[0], os.path.join(gt, f"case_{i:03d}.nii.gz"), props)
+
+
+def write_test_folder(root, cases=2, shape=(4, 224, 256), seed=5):
+    """A seeded raw test folder as a user hands it to prediction:
+    ``imagesTs/{case}_0000.nii.gz`` (one channel, (z, y, x) = ``shape``, the
+    intensities following the labels) and ``labelsTs/{case}.nii.gz``, written
+    through the port's NIfTI writer. Returns the two folders."""
+    import numpy as np
+    from nnuzoo_tpu_torch.imageio.nifti import NiftiIO, write_nifti
+    images, labels = os.path.join(root, "imagesTs"), os.path.join(root, "labelsTs")
+    os.makedirs(images)
+    os.makedirs(labels)
+    rs = np.random.RandomState(seed)
+    for i in range(cases):
+        seg = blob_labels(rs, shape, 32)
+        vol = (100 + 40 * seg + 20 * rs.randn(*shape)).astype(np.float32)
+        write_nifti(os.path.join(images, f"test_{i:03d}_0000.nii.gz"),
+                    vol.transpose(2, 1, 0), spacing_xyz=(1.0, 1.0, 3.0))
+        NiftiIO().write_seg(seg, os.path.join(labels, f"test_{i:03d}.nii.gz"),
+                            {"spacing": [3.0, 1.0, 1.0]})
+    return images, labels
 
 
 def phase_training(profile, glue="default"):
     """``Trainer.run_training()`` for one epoch of TRAIN_STEPS steps and one
-    validation step, with one SS2D glue. Returns the trainer, one sampled
+    validation step, with one SS2D glue. Returns the trainer, its last
     batch, the scan launches (forward, backward) of the run and the weights
     it ended with."""
     import numpy as np
@@ -894,8 +954,9 @@ def profile_train_step(trainer, data, seg, glue="default"):
 def step_readings(trainer, model, data_aug, targets):
     """Loss and gradients of one training step of ``model`` (DropPath off)
     through the kernel path and the fp32 plain path, each held against the
-    plain path in fp64. Returns the readings by path name and the fp64 loss
-    and gradient norm."""
+    plain path in fp64, with the three parameters that carry most of each
+    path's squared gradient error and the share that sits in SCAN_PARAMS.
+    Returns the readings by path name and the fp64 loss and gradient norm."""
     import torch
     from nnuzoo_tpu_torch.models.layers import DropPath
     from nnuzoo_tpu_torch.models.ss2d import set_scan_backend
@@ -935,10 +996,14 @@ def step_readings(trainer, model, data_aug, targets):
     # per-parameter statistic
     live = [i for i, w in enumerate(want)
             if w.abs().max().item() > STEP_LIVE_GRAD * want_max]
+    names = [n for n, _ in model.named_parameters()]
+    is_scan = [n.rsplit(".", 1)[-1] in SCAN_PARAMS for n in names]
     readings = {}
     for name, (loss, grads) in runs.items():
-        err_norm = torch.sqrt(sum(((g - w) ** 2).sum()
-                                  for g, w in zip(grads, want))).item()
+        sq = [((g - w) ** 2).sum().item() for g, w in zip(grads, want)]
+        err_sq = sum(sq)
+        err_norm = err_sq ** 0.5
+        worst = sorted(range(len(sq)), key=sq.__getitem__, reverse=True)[:3]
         dot = sum((g * w).sum() for g, w in zip(grads, want)).item()
         norm = torch.sqrt(sum((g ** 2).sum() for g in grads)).item()
         per_param = sorted(((grads[i] - want[i]).abs().max()
@@ -950,39 +1015,69 @@ def step_readings(trainer, model, data_aug, targets):
             grad_cosine=dot / (norm * want_norm),
             median_param_rel_err=per_param[len(per_param) // 2],
             worst_param_rel_err=per_param[-1],
+            worst_err_share=[[names[i], sq[i] / err_sq] for i in worst],
+            scan_param_err_share=sum(e for e, scan in zip(sq, is_scan) if scan)
+            / err_sq,
             finite=all(bool(torch.isfinite(g).all()) for g in grads))
     return readings, dict(fp64_loss=want_loss, fp64_grad_norm=want_norm,
                           parameters=len(want), parameters_with_gradient=len(live))
 
 
-def phase_step_agreement(trainer, batch, glue="default"):
-    """One training step's loss and gradients from the same weights and the
-    same batch (the first STEP_BATCH samples, augmented once, DropPath off),
-    kernel path and fp32 plain path against the plain path in fp64: for
-    M2NetP at the trainer's widths with stage layers (1, 1, 1, 1), where fp32
-    is well conditioned and the limits are tight, and, with the default
-    glue, for the trainer's model at full depth."""
+def augmented(trainer, data, seg):
+    """One augmentation of a batch with a fixed seed."""
     import torch
     from nnuzoo_tpu_torch.data.augment import augment_train_batch
-    from nnuzoo_tpu_torch.models.registry import get_model_builder
-
-    data, seg = (t[:STEP_BATCH] for t in batch)
     with torch.no_grad():
-        data_aug, targets = augment_train_batch(
+        return augment_train_batch(
             trainer.train_aug_cfg, torch.Generator(device="cuda").manual_seed(7),
             data, seg)
-    with ss2d_glue(glue):
-        shallow = get_model_builder(trainer.trainer_name)(
-            trainer.plans_manager, trainer.dataset_json,
-            trainer.configuration_manager, trainer.num_input_channels, True,
-            device="cuda", seed=1, stage_layers=(1, 1, 1, 1))
-    models = [("stage_layers_1_1_1_1", shallow, SHALLOW_STEP_LIMITS)]
+
+
+def seeded_batch(trainer, seed=STEP_SEED):
+    """STEP_BATCH patches that a sampler of its own, seeded with ``seed``,
+    draws from the trainer's dataset: the same batch on every run, whatever
+    the trainer's own sampler did."""
+    import torch
+    from nnuzoo_tpu_torch.data.patch_sampler import PatchSampler
+    patch = tuple(trainer.configuration_manager.patch_size)
+    sampler = PatchSampler(
+        trainer.dataset_class(trainer.preprocessed_dataset_folder), STEP_BATCH,
+        initial_patch_size=trainer.train_aug_cfg.initial_patch_size[-len(patch):],
+        final_patch_size=patch, label_manager=trainer.label_manager,
+        oversample_foreground_percent=trainer.local_oversample, seed=seed)
+    batch = next(sampler)
+    return (torch.from_numpy(batch["data"]).cuda(),
+            torch.from_numpy(batch["target"]).cuda())
+
+
+def phase_step_agreement(trainer, batch, glue="default"):
+    """One training step's loss and gradients, kernel path and fp32 plain
+    path against the plain path in fp64, each path from the same weights and
+    batch (augmented once with a fixed seed, DropPath off), for M2NetP at the
+    trainer's widths with weights drawn from STEP_SEED: at stage layers
+    (1, 1, 1, 1), where fp32 is well conditioned and the limits are tight,
+    on the first STEP_BATCH samples of the run's last batch; and, with the
+    default glue, at full depth (7, 6, 5, 4) on ``seeded_batch``. Neither
+    model is the trainer's, whose weights after its steps differ from run to
+    run (training is not bit-reproducible on the card), and the full-depth
+    batch does not depend on the trainer's sampler."""
+    from nnuzoo_tpu_torch.models.registry import get_model_builder
+
+    checks = [("stage_layers_1_1_1_1", (1, 1, 1, 1), SHALLOW_STEP_LIMITS,
+               augmented(trainer, *(t[:STEP_BATCH] for t in batch)))]
     if glue == "default":
-        models.append(("full_depth", trainer.model, STEP_LIMITS))
-    for depth, model, limits in models:
+        checks.append(("full_depth", (7, 6, 5, 4), STEP_LIMITS,
+                       augmented(trainer, *seeded_batch(trainer))))
+    for depth, stage_layers, limits, (data_aug, targets) in checks:
+        with ss2d_glue(glue):
+            model = get_model_builder(trainer.trainer_name)(
+                trainer.plans_manager, trainer.dataset_json,
+                trainer.configuration_manager, trainer.num_input_channels, True,
+                device="cuda", seed=STEP_SEED, stage_layers=stage_layers)
         readings, reference = step_readings(trainer, model, data_aug, targets)
+        del model
         emit("step_agreement", glue=glue, depth=depth, batch=STEP_BATCH,
-             **reference, **readings)
+             seed=STEP_SEED, **reference, **readings)
         for name, r in readings.items():
             if not (r["finite"] and all(r[key] <= limit for key, limit in
                                         limits.items() if key in r)):
@@ -993,7 +1088,6 @@ def phase_step_agreement(trainer, batch, glue="default"):
             raise AssertionError(f"training step at {depth}: the kernel path's "
                                  f"gradients are further from fp64 than the fp32 "
                                  f"plain path's: {readings}")
-    del shallow
 
 
 def phase_train_save_predict(trainer, trained):
@@ -1019,6 +1113,85 @@ def phase_train_save_predict(trainer, trained):
     if not same or seg.shape != volume.shape[1:] or not set(labels) <= {0, 1, 2}:
         raise AssertionError(f"prediction from the trained checkpoint: same={same} "
                              f"{seg.shape} {labels}")
+
+
+def phase_files_and_validation(trainer, glue="default"):
+    """The two file-to-file paths with one SS2D glue, on the model that
+    ``trainer`` trained: its final validation (``perform_actual_validation``
+    over the fold's preprocessed cases, Dice against ``gt_segmentations``),
+    then a seeded raw test folder predicted through the command line's
+    ``predict`` entry from the trained-model folder and scored by its
+    ``evaluate_folder`` entry. Each written segmentation must equal
+    ``predict_single_npy_array`` of the same image read by the port's reader.
+    Returns the forward kernel's launches on each path."""
+    import numpy as np
+    import torch
+    from nnuzoo_tpu_torch.cli.entry_points import (evaluate_folder_entry,
+                                                   predict_entry)
+    from nnuzoo_tpu_torch.imageio.nifti import NiftiIO
+
+    kernel, _, per_forward, others = glue_kernels(glue)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in (kernel, *others):
+            k.launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return (result, time.perf_counter() - t0, kernel.launches,
+                sum(k.launches for k in others))
+
+    with ss2d_glue(glue):
+        metrics, seconds, val_launches, other = counted(
+            trainer.perform_actual_validation)
+    dice = metrics["foreground_mean"]["Dice"]
+    written = sorted(os.listdir(os.path.join(trainer.output_folder, "validation")))
+    emit("validation", glue=glue, cases=len(trainer.validation_case_times),
+         seconds=seconds, seconds_per_case=trainer.validation_case_times,
+         scan_launches=val_launches, other_glue_launches=other,
+         foreground_dice=dice, written=written)
+    if not (val_launches > 0 and val_launches % per_forward == 0 and other == 0):
+        raise AssertionError(f"validation: {val_launches} scan launches, {other} "
+                             f"of the other glue's kernels")
+    if not np.isfinite(dice) or "summary.json" not in written:
+        raise AssertionError(f"validation: Dice {dice}, files {written}")
+
+    root = os.path.join(os.environ["nnUNet_results"], "test_data")
+    images, labels = write_test_folder(root)
+    predicted = os.path.join(root, "predicted")
+    args = ["-i", images, "-o", predicted, "-d", trainer.plans_manager.dataset_name,
+            "-c", trainer.configuration_name, "-tr", trainer.trainer_name,
+            "-f", "all", "-device", "cuda"]
+    with ss2d_glue(glue):
+        predictor, seconds, launches, other = counted(lambda: predict_entry(args))
+    forwards = predictor.forward_count
+    rw = NiftiIO()
+    same = []
+    for name in sorted(os.listdir(images)):
+        case = name[:-len("_0000.nii.gz")]
+        image, props = rw.read_images([os.path.join(images, name)])
+        want = predictor.predict_single_npy_array(image, props)
+        got = rw.read_seg(os.path.join(predicted, case + ".nii.gz"))[0][0]
+        same.append(got.shape == want.shape and bool((got == want).all()))
+    summary = evaluate_folder_entry(
+        [labels, predicted, "-djfile",
+         os.path.join(trainer.output_folder_base, "dataset.json"),
+         "-pfile", os.path.join(trainer.output_folder_base, "plans.json"),
+         "-o", os.path.join(root, "summary.json")])
+    dice = summary["foreground_mean"]["Dice"]
+    emit("predict_from_files", glue=glue, cases=len(same), seconds=seconds,
+         seconds_per_case={os.path.basename(k): v
+                           for k, v in predictor.case_times.items()},
+         forwards=forwards, scan_launches=launches, other_glue_launches=other,
+         equal_to_predict_single_npy_array=same, foreground_dice=dice,
+         dice_per_label={str(k): v["Dice"] for k, v in summary["mean"].items()})
+    if not (forwards > 0 and launches == per_forward * forwards and other == 0):
+        raise AssertionError(f"predict_from_files: {launches} scan launches ({other} "
+                             f"of the other glue's kernels) for {forwards} forwards")
+    if len(same) != 2 or not all(same) or not np.isfinite(dice):
+        raise AssertionError(f"predict_from_files: equal {same}, Dice {dice}")
+    return val_launches, launches
 
 
 def kernel_entry(name, source, replaces, launches, rows, path, weight, per,
@@ -1075,6 +1248,7 @@ def main():
             phase_training(profile)
         phase_step_agreement(trainer, batch)
         phase_train_save_predict(trainer, trained)
+        validation_launches, files_launches = phase_files_and_validation(trainer)
         del trainer, batch, trained
     torch.cuda.empty_cache()
 
@@ -1089,6 +1263,8 @@ def main():
         trainer, batch, (k3_launches, k4_launches), _ = \
             phase_training(profile, "fused")
         phase_step_agreement(trainer, batch, "fused")
+        fused_validation_launches, fused_files_launches = \
+            phase_files_and_validation(trainer, "fused")
         del trainer, batch
 
     # one training step's scan work: the per-shape numbers at the training
@@ -1109,7 +1285,9 @@ def main():
                      fwd_rows, on_path(fwd_rows, weight, TRAIN_BATCH, KD=KD),
                      weight, per,
                      launches_by_path={"serving": serving_launches,
-                                       "training": fwd_launches},
+                                       "training": fwd_launches,
+                                       "validation": validation_launches,
+                                       "predict_from_files": files_launches},
                      serving_forward_ms=sum(
                          weight[r["L"]] * r["ms"]
                          for r in on_path(fwd_rows, weight, TILE_BATCH, KD=KD))),
@@ -1126,7 +1304,10 @@ def main():
                      on_path(cross_fwd_rows, weight, TRAIN_BATCH, **cross),
                      weight, fused_per,
                      launches_by_path={"serving_fused": fused_serving_launches,
-                                       "training_fused": k3_launches},
+                                       "training_fused": k3_launches,
+                                       "validation_fused": fused_validation_launches,
+                                       "predict_from_files_fused":
+                                           fused_files_launches},
                      serving_forward_ms=sum(
                          weight[r["L"]] * r["ms"] for r in
                          on_path(cross_fwd_rows, weight, TILE_BATCH, **cross))),
@@ -1138,13 +1319,15 @@ def main():
                      weight, fused_per,
                      launches_by_path={"training_fused": k4_launches}),
     ]
-    if min(serving_launches, fwd_launches, bwd_launches, fused_serving_launches,
-           k3_launches, k4_launches) <= 0:
+    if min(serving_launches, fwd_launches, bwd_launches, validation_launches,
+           files_launches, fused_serving_launches, k3_launches, k4_launches,
+           fused_validation_launches, fused_files_launches) <= 0:
         raise AssertionError("a kernel of the main paths was never launched")
     out(json.dumps({"kernels": kernels}))
 
     leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "flax", "optax", "nnuzoo_tpu"))
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                           "msgpack", "nnuzoo_tpu"))
     if leaked:
         raise AssertionError(f"JAX-side modules imported: {leaked}")
     out(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 The layout mirrors ``nnuzoo_tpu``: ``ops/`` (the selective scan, with its
 hand-written CUDA kernels, forward and backward, in ``csrc/``), ``models/``,
 ``training/``, ``data/``, ``run/``, ``inference/``, ``plans/``,
-``preprocessing/`` and ``utilities/``. ``convert.py`` turns the JAX package's
+``preprocessing/``, ``imageio/``, ``evaluation/``, ``utilities/`` and
+``cli/`` (``python -m nnuzoo_tpu_torch.cli train|predict|evaluate_folder``). ``convert.py`` turns the JAX package's
 parameters into this package's ``state_dict`` and back. The package imports
 neither JAX nor ``nnuzoo_tpu``.
 """

@@ -1,7 +1,7 @@
 """Label / region / ignore-label semantics.
 
 Copy of ``nnuzoo_tpu/plans/label_handling.py``, trimmed to what prediction
-calls (its logic unchanged); the port imports nothing of the JAX package.
+and training call (its logic unchanged); the port imports nothing of the JAX package.
 
 Numpy-only re-implementation of the reference LabelManager
 (`nnunetv2/utilities/label_handling/label_handling.py:20-253`):
@@ -166,6 +166,17 @@ class LabelManager:
             return seg
         return probs.argmax(0)
 
+    def convert_logits_to_segmentation(self, logits: np.ndarray) -> np.ndarray:
+        if self.has_regions:
+            return self.convert_probabilities_to_segmentation(
+                self.apply_inference_nonlin(logits))
+        # argmax is identical on logits and probabilities
+        return self.convert_probabilities_to_segmentation_noassert_argmax(logits)
+
+    def convert_probabilities_to_segmentation_noassert_argmax(self, logits):
+        assert logits.shape[0] == self.num_segmentation_heads
+        return logits.argmax(0)
+
     def revert_cropping_on_probabilities(self, probs: np.ndarray, bbox, original_shape):
         """Insert (c, *cropped) probabilities back into a (c, *original_shape) canvas;
         padded area becomes background prob 1 in label mode (reference `:200-221`)."""
@@ -175,6 +186,16 @@ class LabelManager:
         slicer = tuple([slice(None)] + [slice(b[0], b[1]) for b in bbox])
         out[slicer] = probs
         return out
+
+
+def convert_labelmap_to_one_hot(segmentation: np.ndarray, all_labels,
+                                output_dtype=np.uint8) -> np.ndarray:
+    """(x, y(, z)) labelmap -> (len(all_labels), x, y(, z)) one-hot
+    (reference `label_handling.py:269-302`)."""
+    result = np.zeros((len(all_labels), *segmentation.shape), dtype=output_dtype)
+    for i, l in enumerate(all_labels):
+        result[i] = segmentation == l
+    return result
 
 
 def determine_num_input_channels(plans_manager, configuration_or_config_manager,

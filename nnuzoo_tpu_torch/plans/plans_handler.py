@@ -132,6 +132,11 @@ class PlansManager:
         return self.plans["plans_name"]
 
     @property
+    def image_reader_writer_class(self):
+        from ..imageio.registry import find_reader_writer_by_name
+        return find_reader_writer_by_name(self.plans["image_reader_writer"])
+
+    @property
     def transpose_forward(self) -> List[int]:
         return self.plans["transpose_forward"]
 

@@ -1,14 +1,14 @@
 """Crop-to-nonzero (reference: `nnunetv2/preprocessing/cropping/cropping.py:8-50`).
 
-Copy of ``nnuzoo_tpu/preprocessing/cropping.py`` without its segmentation
-argument; the port imports nothing of the JAX package.
+Copy of ``nnuzoo_tpu/preprocessing/cropping.py``; the port imports nothing of
+the JAX package.
 
 The nonzero mask is the union over channels of ``data != 0``, hole-filled; the crop
 bbox is its bounding box. Voxels inside the bbox but outside the mask get label -1 in
-the returned segmentation (used later by mask-restricted normalization).
+the segmentation (used later by mask-restricted normalization).
 """
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 from scipy.ndimage import binary_fill_holes
@@ -38,15 +38,20 @@ def create_nonzero_mask(data: np.ndarray) -> np.ndarray:
     return binary_fill_holes(nonzero_mask)
 
 
-def crop_to_nonzero(data: np.ndarray, nonzero_label: int = -1):
-    """Returns (cropped data, the mask as a seg with nonzero_label outside it,
-    bbox). The copy keeps the image-only path: the port's prediction passes
-    no segmentation."""
+def crop_to_nonzero(data: np.ndarray, seg: Optional[np.ndarray] = None,
+                    nonzero_label: int = -1):
+    """Returns (cropped data, seg with nonzero_label outside mask, bbox)."""
     nonzero_mask = create_nonzero_mask(data)
     bbox = get_bbox_from_mask(nonzero_mask)
     slicer = bounding_box_to_slice(bbox)
 
     data = data[(slice(None), *slicer)]
+    if seg is not None:
+        seg = seg[(slice(None), *slicer)]
+
     nonzero_mask = nonzero_mask[slicer][None]
-    seg = np.where(nonzero_mask, 0, nonzero_label).astype(np.int8)
+    if seg is not None:
+        seg[(seg == 0) & (~nonzero_mask)] = nonzero_label
+    else:
+        seg = np.where(nonzero_mask, 0, nonzero_label).astype(np.int8)
     return data, seg, bbox

@@ -1,20 +1,23 @@
 """Case preprocessing: transpose -> crop -> normalize -> resample.
 
-Copy of ``nnuzoo_tpu/preprocessing/preprocessor.py`` trimmed to the image-only
-path of ``run_case_npy`` (``seg=None``), which is what prediction runs. The
-segmentation branch (seg resampling, foreground-location sampling) and the
-file-based ``run_case``/``run`` wait for the training slice and the port's
-image I/O; the port imports nothing of the JAX package.
+Copy of ``nnuzoo_tpu/preprocessing/preprocessor.py`` trimmed to
+``run_case_npy`` and ``run_case``, which is what prediction and the cascade
+input run. A segmentation is cropped and resampled with the image; the
+foreground-location sampling that training's preprocessing adds
+(``class_locations``), ``run_case_save`` and ``run`` wait for the port's
+``plan_and_preprocess``. The port imports nothing of the JAX package.
 
 Semantics follow `nnunetv2/preprocessing/preprocessors/default_preprocessor.py:42-305`:
 normalization MUST run before resampling (the nonzero mask must still align).
 """
 
-from typing import Optional, Union
+import time
+from typing import List, Optional, Union
 
 import numpy as np
 
 from ..plans.plans_handler import ConfigurationManager, PlansManager
+from ..utilities.io import load_json
 from .cropping import crop_to_nonzero
 from .normalization import get_normalization_class_by_name
 from .resampling import compute_new_shape
@@ -28,20 +31,24 @@ class DefaultPreprocessor:
                      plans_manager: PlansManager,
                      configuration_manager: ConfigurationManager,
                      dataset_json: Union[dict, str]):
-        if seg is not None:
-            raise NotImplementedError("preprocessing a segmentation comes with the "
-                                      "port's training slice")
         data = np.copy(data)
+        has_seg = seg is not None
+        if has_seg:
+            assert data.shape[1:] == seg.shape[1:], \
+                "Shape mismatch between image and segmentation"
+            seg = np.copy(seg)
 
         # transpose (also applies to spacing)
         tf = plans_manager.transpose_forward
         data = data.transpose([0, *[i + 1 for i in tf]])
+        if has_seg:
+            seg = seg.transpose([0, *[i + 1 for i in tf]])
         original_spacing = [properties["spacing"][i] for i in tf]
 
         properties["shape_before_cropping"] = data.shape[1:]
-        # seg comes back as the nonzero mask (-1 outside), for mask-restricted
-        # normalization
-        data, seg, bbox = crop_to_nonzero(data)
+        # without a segmentation, seg comes back as the nonzero mask (-1
+        # outside), for mask-restricted normalization
+        data, seg, bbox = crop_to_nonzero(data, seg if has_seg else None)
         properties["bbox_used_for_cropping"] = bbox
         properties["shape_after_cropping_and_before_resampling"] = data.shape[1:]
 
@@ -57,7 +64,38 @@ class DefaultPreprocessor:
 
         data = configuration_manager.resampling_fn_data(
             data, new_shape, original_spacing, target_spacing)
+        if has_seg:
+            seg = configuration_manager.resampling_fn_seg(
+                seg, new_shape, original_spacing, target_spacing)
+            seg = self.modify_seg_fn(seg, plans_manager, dataset_json,
+                                     configuration_manager)
+            seg = seg.astype(np.int16 if np.max(seg) > 127 else np.int8)
+            return data.astype(np.float32, copy=False), seg
         return data.astype(np.float32, copy=False), None
+
+    def modify_seg_fn(self, seg, plans_manager, dataset_json, configuration_manager):
+        return seg
+
+    def run_case(self, image_files: List[str], seg_file: Optional[str],
+                 plans_manager: PlansManager, configuration_manager: ConfigurationManager,
+                 dataset_json: Union[dict, str], times: Optional[dict] = None):
+        """Read one case's image files (and a segmentation file) through the
+        plans' reader and preprocess them: (data, seg or None, properties).
+        A ``times`` dict gets the seconds of each part, ``read_s`` and
+        ``preprocess_s``."""
+        if isinstance(dataset_json, str):
+            dataset_json = load_json(dataset_json)
+        t0 = time.perf_counter()
+        rw = plans_manager.image_reader_writer_class()
+        data, data_properties = rw.read_images(image_files)
+        seg = rw.read_seg(seg_file)[0] if seg_file is not None else None
+        t1 = time.perf_counter()
+        data, seg = self.run_case_npy(data, seg, data_properties, plans_manager,
+                                      configuration_manager, dataset_json)
+        if times is not None:
+            times["read_s"] = t1 - t0
+            times["preprocess_s"] = time.perf_counter() - t1
+        return data, seg, data_properties
 
     def _normalize(self, data: np.ndarray, seg: Optional[np.ndarray],
                    configuration_manager: ConfigurationManager,

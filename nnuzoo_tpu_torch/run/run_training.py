@@ -1,8 +1,11 @@
 """Training orchestration (port of ``nnuzoo_tpu/run/run_training.py``).
 
-One process, one device. Not ported yet: initialising from pretrained weights
-and the final validation (``perform_actual_validation``), so
-:func:`run_training` takes ``skip_validation=True`` only.
+One process, one device. :func:`run_training` trains (or, with
+``continue_training``, resumes from this package's checkpoints), then runs the
+final validation unless ``skip_validation``; ``only_run_validation`` loads
+``checkpoint_final`` (else ``checkpoint_best``) and validates, and
+``validate_with_best`` validates the best checkpoint. Initialising from
+pretrained weights is not ported yet.
 """
 
 from typing import Optional, Union

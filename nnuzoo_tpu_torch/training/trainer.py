@@ -13,10 +13,13 @@ clip -> optimizer update; the host side is a ``PatchSampler`` thread behind a
 generators made from ``seed``: the weights, the DropPath masks and the
 augmentation each have their own.
 
+The final validation (``perform_actual_validation``) predicts the fold's
+validation cases with the port's ``Predictor``, writes them through the plans'
+writer and scores them against ``gt_segmentations``.
+
 Not ported yet, each raising ``NotImplementedError``: SSL and translation
 targets, the encoder freeze of the fine-tuning trainer, device meshes and
-multi-process batches, ``perform_actual_validation``, bf16, and cascaded
-configurations.
+multi-process batches, bf16, and cascaded configurations.
 """
 
 import os
@@ -580,10 +583,62 @@ class Trainer:
 
     # ----------------------------------------------------------------- final val
     def perform_actual_validation(self, save_probabilities: bool = False) -> dict:
-        raise NotImplementedError(
-            "the final sliding-window validation over the fold needs prediction "
-            "from files and the image readers, which are not in nnuzoo_tpu_torch "
-            "yet; predict with inference.predictor.Predictor")
+        """Sliding-window prediction of the validation fold's cases, written
+        to ``validation/`` through the plans' writer, and the Dice summary
+        against ``gt_segmentations`` in ``validation/summary.json``
+        (reference `nnUNetTrainer.py:1354-1504`). Each case's seconds
+        (read, device, export) go to ``validation_case_times``. One process;
+        the SSL target and cascaded configurations never get here
+        (``_check_ported``)."""
+        from ..evaluation.metrics import compute_metrics_on_folder
+        from ..inference.export import export_prediction_from_logits
+        from ..inference.predictor import Predictor
+
+        predictor = Predictor(tile_step_size=0.5, use_gaussian=True,
+                              use_mirroring=True, allowed_mirroring_axes=None,
+                              device=self.device)
+        predictor.manual_initialization(
+            get_model_builder(self.trainer_name)(
+                self.plans_manager, self.dataset_json, self.configuration_manager,
+                self.num_input_channels, deep_supervision=False,
+                device=self.device),
+            [self.model.state_dict()], self.plans_manager,
+            self.configuration_manager, self.dataset_json, self.trainer_name,
+            self.inference_allowed_mirroring_axes)
+
+        validation_output_folder = join(self.output_folder, "validation")
+        maybe_mkdir(validation_output_folder)
+        _, val_keys = self.do_split()
+        dataset_val = self.dataset_class(self.preprocessed_dataset_folder, val_keys)
+        self.validation_case_times = {}
+        for k in val_keys:
+            t0 = time.perf_counter()
+            data, _, _, properties = dataset_val.load_case(k)
+            data = np.asarray(data, dtype=np.float32)
+            t1 = time.perf_counter()
+            logits = predictor.predict_sliding_window_return_logits(data)
+            t2 = time.perf_counter()
+            export_prediction_from_logits(
+                logits, properties, self.configuration_manager, self.plans_manager,
+                self.dataset_json, join(validation_output_folder, k),
+                save_probabilities)
+            self.validation_case_times[k] = {
+                "read_s": t1 - t0, "device_s": t2 - t1,
+                "export_s": time.perf_counter() - t2}
+
+        lm = self.label_manager
+        metrics = compute_metrics_on_folder(
+            join(self.preprocessed_dataset_folder_base, "gt_segmentations"),
+            validation_output_folder,
+            join(validation_output_folder, "summary.json"),
+            self.plans_manager.image_reader_writer_class(),
+            self.dataset_json["file_ending"],
+            lm.foreground_regions if lm.has_regions else lm.foreground_labels,
+            lm.ignore_label, num_processes=4)
+        self.print_to_log_file(
+            f"Validation complete. Mean Dice: "
+            f"{metrics['foreground_mean']['Dice']:.4f}")
+        return metrics
 
     # ----------------------------------------------------------------- checkpoint
     def save_checkpoint(self, filename: str) -> None:

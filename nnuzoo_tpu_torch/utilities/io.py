@@ -4,7 +4,7 @@
 import json
 import os
 import pickle
-from typing import Any
+from typing import Any, List
 
 
 def load_json(path: str) -> Any:
@@ -37,3 +37,24 @@ def join(*args: str) -> str:
 
 def isfile(path: str) -> bool:
     return os.path.isfile(path)
+
+
+def isdir(path: str) -> bool:
+    return os.path.isdir(path)
+
+
+def subfiles(folder: str, prefix: str = None, suffix: str = None, sort: bool = True,
+             join_path: bool = True) -> List[str]:
+    res = []
+    for f in os.listdir(folder):
+        full = os.path.join(folder, f)
+        if not os.path.isfile(full):
+            continue
+        if prefix is not None and not f.startswith(prefix):
+            continue
+        if suffix is not None and not f.endswith(suffix):
+            continue
+        res.append(full if join_path else f)
+    if sort:
+        res.sort()
+    return res

@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of ``nnuzoo_tpu_torch``
-loads neither JAX nor any module of the JAX package, and its entry points
-refuse to run on a CUDA device that is not there."""
+loads neither JAX, flax, optax, msgpack, PIL nor any module of the JAX
+package (the GPU machine has no flax or msgpack, and PIL is imported only
+where an image is read or written), and its entry points refuse to run on a
+CUDA device that is not there."""
 
 import subprocess
 import sys
@@ -20,13 +22,16 @@ names = [m.name for m in pkgutil.walk_packages(nnuzoo_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nnuzoo_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack",
+                                    "PIL", "nnuzoo_tpu"))
 print(len(names), bad)
 for wanted in ("training.trainer", "training.losses", "training.schedulers",
                "training.trainer_config", "training.logger", "data.augment",
                "data.dataset", "data.patch_sampler", "data.loader",
                "run.run_training", "ops.cross_scan", "ops.selective_scan",
-               "models.ss2d"):
+               "models.ss2d", "imageio.registry", "imageio.natural",
+               "imageio.tiff", "evaluation.metrics", "utilities.flax_msgpack",
+               "utilities.dataset_utils", "cli.entry_points", "cli.__main__"):
     assert "nnuzoo_tpu_torch." + wanted in names, wanted
 """
 
@@ -65,11 +70,24 @@ def test_default_device_raises_without_cuda(no_cuda):
     Predictor(device="cpu")
 
 
+def test_cli_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path, monkeypatch):
+    from nnuzoo_tpu_torch.cli.entry_points import main
+    monkeypatch.setenv("nnUNet_results", str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["predict", "-i", str(tmp_path), "-o", str(tmp_path / "out"),
+              "-d", "Dataset999_Port", "-c", "2d"])
+    out = subprocess.run([sys.executable, "-m", "nnuzoo_tpu_torch.cli"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "train,predict,evaluate_folder" in out.stderr
+
+
 def test_no_source_line_imports_the_jax_side():
-    """No module of the port names ``jax``, ``flax``, ``optax`` or the JAX
-    package in an import statement, not even inside a function."""
+    """No module of the port names ``jax``, ``flax``, ``optax``, ``msgpack``
+    or the JAX package in an import statement, not even inside a function."""
     import re
-    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|nnuzoo_tpu)(\.|\s|$)")
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|msgpack|"
+                         r"nnuzoo_tpu)(\.|\s|$)")
     files = list((REPO / "nnuzoo_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 40
     bad = [(str(f.relative_to(REPO)), line.strip()) for f in files

@@ -98,9 +98,10 @@ def test_logits_match_jax(predictors):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * span)
 
 
-def test_segmentation_identical_to_jax(predictors):
+def test_segmentation_identical_to_jax(predictors, tmp_path):
     """The segmentation is identical; the probabilities (softmax of logits
-    that agree to 1e-3 of their range) agree to 1e-3."""
+    that agree to 1e-3 of their range) agree to 1e-3. Written to a file
+    through the plans' writer, the segmentation reads back the same."""
     jp, tp = predictors
     want, want_prob = jp.predict_single_npy_array(
         _volume(), dict(PROPS), save_or_return_probabilities=True)
@@ -115,9 +116,13 @@ def test_segmentation_identical_to_jax(predictors):
     # without probabilities: the same segmentation through the other branch
     np.testing.assert_array_equal(
         tp.predict_single_npy_array(_volume(), dict(PROPS)), got)
-    with pytest.raises(NotImplementedError):
-        tp.predict_single_npy_array(_volume(), dict(PROPS),
-                                    segmentation_previous_stage=got[0])
+    from nnuzoo_tpu_torch.imageio.nifti import NiftiIO
+    out = str(tmp_path / "case")
+    assert tp.predict_single_npy_array(_volume(), dict(PROPS),
+                                       output_file_truncated=out) is None
+    written, props = NiftiIO().read_seg(out + DATASET["file_ending"])
+    np.testing.assert_array_equal(written[0], got)
+    assert props["spacing"] == PROPS["spacing"]
 
 
 def test_segmentation_with_the_fused_glue_identical_to_jax(predictors):
@@ -167,7 +172,8 @@ def test_preprocessing_copy_matches_jax():
 
 def test_preprocessing_copy_with_mask_for_norm_matches_jax():
     """``use_mask_for_norm`` normalizes inside the crop's nonzero mask only;
-    the copy takes no segmentation (that comes with the training slice)."""
+    with a segmentation, that is cropped and resampled alongside, as in the
+    JAX package (which adds the foreground locations of training)."""
     vol = _volume()
     vol[:, :, :2] = 0                         # cropped away
     vol[:, :, 2:8, :5] = 0                    # inside the crop, outside the mask
@@ -180,10 +186,20 @@ def test_preprocessing_copy_with_mask_for_norm_matches_jax():
         vol, None, dict(PROPS), pm, pm.get_configuration("2d"), DATASET)
     np.testing.assert_array_equal(got, want)
     assert (got[:, :, :6, :5] == 0).all()     # outside the mask stays 0
-    with pytest.raises(NotImplementedError, match="training slice"):
-        DefaultPreprocessor().run_case_npy(
-            vol, np.zeros_like(vol, dtype=np.uint8), dict(PROPS), pm,
-            pm.get_configuration("2d"), DATASET)
+    seg = (vol > 60).astype(np.int8) + (vol > 90).astype(np.int8)
+    want_props, got_props = dict(PROPS), dict(PROPS)
+    want_d, want_s = JaxPreprocessor().run_case_npy(
+        vol, seg, want_props, jpm, jpm.get_configuration("2d"), DATASET)
+    got_d, got_s = DefaultPreprocessor().run_case_npy(
+        vol, seg, got_props, pm, pm.get_configuration("2d"), DATASET)
+    np.testing.assert_array_equal(got_d, want_d)
+    assert got_s.dtype == want_s.dtype
+    np.testing.assert_array_equal(got_s, want_s)
+    assert set(np.unique(got_s)) == {-1, 0, 1, 2}
+    assert "class_locations" not in got_props
+    for k in ("shape_before_cropping", "bbox_used_for_cropping",
+              "shape_after_cropping_and_before_resampling"):
+        assert got_props[k] == want_props[k], k
 
 
 def test_sliding_window_copy_matches_jax():

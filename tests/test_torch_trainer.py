@@ -129,16 +129,29 @@ def test_train_checkpoint_resume_predict(dataset):
 
 
 def test_run_training_entry_point_and_the_parts_that_wait(dataset, monkeypatch):
-    """``run_training`` builds the trainer and trains; the final validation is
-    not ported, and neither are the options listed in the trainer's docstring:
-    each raises ``NotImplementedError``."""
+    """``run_training`` builds the trainer, trains and runs the final
+    validation unless told to skip it; the options listed in the trainer's
+    docstring are not ported: each raises ``NotImplementedError``."""
     calls = []
-    monkeypatch.setattr(Trainer, "run_training", lambda self: calls.append(self))
+
+    def no_training(self):
+        calls.append(self)
+        self.initialize()
+        # predict without mirror TTA to keep the file fast; the validation
+        # with TTA is held to the JAX package in test_torch_validation.py
+        self.inference_allowed_mirroring_axes = None
+
+    monkeypatch.setattr(Trainer, "run_training", no_training)
     t = run_training(999, "2d", "all", NAME, num_epochs=1, skip_validation=True,
                      device="cpu", seed=0)
     assert calls == [t] and t.fold == "all"
-    with pytest.raises(NotImplementedError, match="validation"):
-        run_training(999, "2d", 0, NAME, num_epochs=1, device="cpu", seed=0)
+    assert not os.path.isdir(os.path.join(t.output_folder, "validation"))
+    t = run_training(999, "2d", 0, NAME, num_epochs=1, device="cpu", seed=0)
+    val = os.path.join(t.output_folder, "validation")
+    _, val_keys = t.do_split()
+    assert sorted(os.listdir(val)) == sorted(
+        [k + ".nii.gz" for k in val_keys] + ["summary.json"])
+    assert set(t.validation_case_times) == set(val_keys)
     with pytest.raises(FileNotFoundError):
         run_training(999, "2d", 0, NAME, only_run_validation=True, device="cpu")
 
