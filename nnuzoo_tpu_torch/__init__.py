@@ -3,8 +3,10 @@
 The layout mirrors ``nnuzoo_tpu``: ``ops/`` (the selective scan, with its
 hand-written CUDA kernels, forward and backward, in ``csrc/``), ``models/``,
 ``training/``, ``data/``, ``run/``, ``inference/``, ``plans/``,
-``preprocessing/``, ``imageio/``, ``evaluation/``, ``utilities/`` and
-``cli/`` (``python -m nnuzoo_tpu_torch.cli train|predict|evaluate_folder``). ``convert.py`` turns the JAX package's
+``planning/``, ``preprocessing/``, ``imageio/``, ``evaluation/``,
+``utilities/`` and ``cli/`` (``python -m nnuzoo_tpu_torch.cli
+plan_and_preprocess|train|predict|predict_from_modelfolder|evaluate_folder|evaluate_simple``
+and the three planning steps apart). ``convert.py`` turns the JAX package's
 parameters into this package's ``state_dict`` and back. The package imports
 neither JAX nor ``nnuzoo_tpu``.
 """

@@ -1,10 +1,95 @@
 """Entry points of the port's command line (port of the ``train``,
-``predict`` and ``evaluate_folder`` entries of
+``predict``, ``evaluate_folder``, planning and preprocessing,
+``evaluate_simple`` and ``predict_from_modelfolder`` entries of
 ``nnuzoo_tpu/cli/entry_points.py``; reference ``nnUNetv2_*`` console
 scripts). Same flags as the JAX package's; ``-device`` is honoured here and
-defaults to ``cuda``, which raises where there is no card."""
+defaults to ``cuda``, which raises where there is no card. Planning,
+preprocessing and evaluation run on the host and touch no device."""
 
 import argparse
+
+
+def _default_np_for(configurations):
+    """Default preprocessing worker count per requested configuration
+    (reference uses 8/4/8 for 2d/3d_fullres/3d_lowres)."""
+    per_cfg = {"2d": 8, "3d_fullres": 4, "3d_lowres": 8}
+    return [per_cfg.get(c, 4) for c in configurations]
+
+
+def plan_and_preprocess_entry(argv=None):
+    p = argparse.ArgumentParser("nnuzoo_tpu_torch.cli plan_and_preprocess")
+    p.add_argument("-d", nargs="+", type=int, required=True, help="dataset ids")
+    p.add_argument("-fpe", default="DatasetFingerprintExtractor")
+    p.add_argument("-npfp", type=int, default=8)
+    p.add_argument("--verify_dataset_integrity", action="store_true")
+    p.add_argument("--no_pp", action="store_true",
+                   help="plan only, skip preprocessing")
+    p.add_argument("--clean", action="store_true")
+    p.add_argument("-pl", default="ExperimentPlanner")
+    p.add_argument("-gpu_memory_target", type=float, default=8)
+    p.add_argument("-preprocessor_name", default="DefaultPreprocessor")
+    p.add_argument("-overwrite_target_spacing", nargs="+", type=float, default=None)
+    p.add_argument("-overwrite_plans_name", default=None)
+    p.add_argument("-c", nargs="+", default=["2d", "3d_fullres", "3d_lowres"])
+    p.add_argument("-np", nargs="+", type=int, default=None)
+    p.add_argument("--verbose", action="store_true")
+    a = p.parse_args(argv)
+
+    from ..planning.api import extract_fingerprints, plan_experiments, preprocess
+    extract_fingerprints(a.d, a.npfp, a.verify_dataset_integrity, a.clean, a.verbose)
+    plan_experiments(a.d, experiment_planner_name=a.pl,
+                     gpu_memory_target_in_gb=a.gpu_memory_target,
+                     preprocess_class_name=a.preprocessor_name,
+                     overwrite_target_spacing=a.overwrite_target_spacing,
+                     overwrite_plans_name=a.overwrite_plans_name)
+    if not a.no_pp:
+        np_ = a.np if a.np is not None else _default_np_for(a.c)
+        plans_name = a.overwrite_plans_name or "nnUNetPlans"
+        preprocess(a.d, plans_name, configurations=a.c, num_processes=np_,
+                   verbose=a.verbose)
+
+
+def extract_fingerprint_entry(argv=None):
+    p = argparse.ArgumentParser("nnuzoo_tpu_torch.cli extract_fingerprint")
+    p.add_argument("-d", nargs="+", type=int, required=True)
+    p.add_argument("-np", type=int, default=8)
+    p.add_argument("--verify_dataset_integrity", action="store_true")
+    p.add_argument("--clean", action="store_true")
+    p.add_argument("--verbose", action="store_true")
+    a = p.parse_args(argv)
+    from ..planning.api import extract_fingerprints
+    extract_fingerprints(a.d, a.np, a.verify_dataset_integrity, a.clean, a.verbose)
+
+
+def plan_experiment_entry(argv=None):
+    p = argparse.ArgumentParser("nnuzoo_tpu_torch.cli plan_experiment")
+    p.add_argument("-d", nargs="+", type=int, required=True)
+    p.add_argument("-pl", default="ExperimentPlanner")
+    p.add_argument("-gpu_memory_target", type=float, default=8)
+    p.add_argument("-preprocessor_name", default="DefaultPreprocessor")
+    p.add_argument("-overwrite_target_spacing", nargs="+", type=float, default=None)
+    p.add_argument("-overwrite_plans_name", default=None)
+    a = p.parse_args(argv)
+    from ..planning.api import plan_experiments
+    plan_experiments(a.d, experiment_planner_name=a.pl,
+                     gpu_memory_target_in_gb=a.gpu_memory_target,
+                     preprocess_class_name=a.preprocessor_name,
+                     overwrite_target_spacing=a.overwrite_target_spacing,
+                     overwrite_plans_name=a.overwrite_plans_name)
+
+
+def preprocess_entry(argv=None):
+    p = argparse.ArgumentParser("nnuzoo_tpu_torch.cli preprocess")
+    p.add_argument("-d", nargs="+", type=int, required=True)
+    p.add_argument("-plans_name", default="nnUNetPlans")
+    p.add_argument("-c", nargs="+", default=["2d", "3d_fullres", "3d_lowres"])
+    p.add_argument("-np", nargs="+", type=int, default=None)
+    p.add_argument("--verbose", action="store_true")
+    a = p.parse_args(argv)
+    from ..planning.api import preprocess
+    np_ = a.np if a.np is not None else _default_np_for(a.c)
+    preprocess(a.d, a.plans_name, configurations=a.c, num_processes=np_,
+               verbose=a.verbose)
 
 
 def train_entry(argv=None):
@@ -107,8 +192,58 @@ def evaluate_folder_entry(argv=None):
     return metrics
 
 
+def evaluate_simple_entry(argv=None):
+    p = argparse.ArgumentParser("nnuzoo_tpu_torch.cli evaluate_simple")
+    p.add_argument("gt_folder")
+    p.add_argument("pred_folder")
+    p.add_argument("-l", nargs="+", type=int, required=True, help="labels")
+    p.add_argument("-il", type=int, default=None, help="ignore label")
+    p.add_argument("-o", default=None)
+    p.add_argument("-np", type=int, default=8)
+    a = p.parse_args(argv)
+    from ..evaluation.metrics import compute_metrics_on_folder_simple
+    return compute_metrics_on_folder_simple(a.gt_folder, a.pred_folder, a.l, a.o,
+                                            a.np, a.il)
+
+
+def predict_from_modelfolder_entry(argv=None):
+    p = argparse.ArgumentParser("nnuzoo_tpu_torch.cli predict_from_modelfolder")
+    p.add_argument("-i", required=True)
+    p.add_argument("-o", required=True)
+    p.add_argument("-m", required=True, help="trained model folder")
+    p.add_argument("-f", nargs="+", default=None)
+    p.add_argument("-step_size", type=float, default=0.5)
+    p.add_argument("-chk", default="checkpoint_final.pth")
+    p.add_argument("--disable_tta", action="store_true")
+    p.add_argument("--save_probabilities", action="store_true")
+    p.add_argument("--continue_prediction", action="store_true")
+    p.add_argument("-num_parts", type=int, default=1)
+    p.add_argument("-part_id", type=int, default=0)
+    p.add_argument("-prev_stage_predictions", default=None)
+    p.add_argument("-device", default="cuda", help="torch device (cuda or cpu)")
+    p.add_argument("--verbose", action="store_true")
+    a = p.parse_args(argv)
+    from ..inference.predictor import Predictor
+    predictor = Predictor(tile_step_size=a.step_size, use_gaussian=True,
+                          use_mirroring=not a.disable_tta, verbose=a.verbose,
+                          device=a.device)
+    predictor.initialize_from_trained_model_folder(a.m, a.f, a.chk)
+    predictor.predict_from_files(a.i, a.o, save_probabilities=a.save_probabilities,
+                                 overwrite=not a.continue_prediction,
+                                 num_parts=a.num_parts, part_id=a.part_id,
+                                 folder_with_segs_from_prev_stage=
+                                 a.prev_stage_predictions)
+    return predictor
+
+
 COMMANDS = {"train": train_entry, "predict": predict_entry,
-            "evaluate_folder": evaluate_folder_entry}
+            "evaluate_folder": evaluate_folder_entry,
+            "plan_and_preprocess": plan_and_preprocess_entry,
+            "extract_fingerprint": extract_fingerprint_entry,
+            "plan_experiment": plan_experiment_entry,
+            "preprocess": preprocess_entry,
+            "evaluate_simple": evaluate_simple_entry,
+            "predict_from_modelfolder": predict_from_modelfolder_entry}
 
 
 def main(argv=None):
@@ -117,4 +252,4 @@ def main(argv=None):
     if not argv or argv[0] not in COMMANDS:
         raise SystemExit(f"usage: python -m nnuzoo_tpu_torch.cli "
                          f"{{{','.join(COMMANDS)}}} [arguments]")
-    COMMANDS[argv[0]](argv[1:])
+    return COMMANDS[argv[0]](argv[1:])

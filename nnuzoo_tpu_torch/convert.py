@@ -11,6 +11,8 @@ the flattened flax tree:
   ``dt_projs_weight``, ``dt_projs_bias``, ``A_logs``, ``Ds``) passes through.
 
 Any key left over on either side, or any shape that disagrees, raises.
+:func:`adamw_state_from_optax` maps the JAX trainer's optax AdamW moments the
+same way.
 :func:`params_from_state_dict` is the reverse walk (a 1-d ``weight`` is a
 norm's ``scale``); it also takes a dict of gradients by parameter name.
 """
@@ -47,17 +49,26 @@ def _convert_leaf(leaf: str, value: np.ndarray):
     return leaf, value
 
 
-def convert_params(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+def convert_params_by_name(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's params (``{"params": {...}}`` or the inner tree, a
-    nested dict of arrays) as a ``state_dict`` for ``model``, on the CPU."""
+    nested dict of arrays) under this package's names and layouts, on the
+    CPU, checked against no model."""
     if set(params.keys()) == {"params"}:
         params = params["params"]
     converted = {}
     for key, value in flatten_params(params).items():
         *path, leaf = key.split(".")
         name, array = _convert_leaf(leaf, value)
+        # a copy: arrays decoded from msgpack are read-only views
         converted[".".join(path + [name])] = torch.from_numpy(
-            np.ascontiguousarray(array, dtype=np.float32))
+            np.array(array, dtype=np.float32, order="C"))
+    return converted
+
+
+def convert_params(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX package's params (``{"params": {...}}`` or the inner tree, a
+    nested dict of arrays) as a ``state_dict`` for ``model``, on the CPU."""
+    converted = convert_params_by_name(params)
     target = model.state_dict()
     missing = sorted(set(target) - set(converted))
     unused = sorted(set(converted) - set(target))
@@ -70,6 +81,32 @@ def convert_params(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]
     if bad:
         raise ValueError(f"shape mismatches (JAX, torch): {bad[:10]}")
     return converted
+
+
+def adamw_state_from_optax(opt_state: Mapping, model: nn.Module) -> Dict[int, dict]:
+    """The JAX package's optimizer state of ``optax.chain(clip_by_global_norm,
+    adamw)`` (the nested dict that ``utilities.flax_msgpack.msgpack_restore``
+    makes of it) as the per-parameter ``state`` of ``torch.optim.AdamW`` over
+    ``model.parameters()``. optax's ``count`` and AdamW's ``step`` both count
+    the updates taken; ``mu`` and ``nu`` have the params' tree and layouts
+    and become ``exp_avg`` and ``exp_avg_sq`` through :func:`convert_params`.
+    Any other state (SGD's trace, another chain) raises."""
+    chain = opt_state.get("1") if set(opt_state) == {"0", "1"} else None
+    if not (opt_state.get("0") == {} and isinstance(chain, Mapping)
+            and set(chain) == {"0", "1", "2"} and chain["1"] == {}
+            and isinstance(chain["0"], Mapping)
+            and set(chain["0"]) == {"count", "mu", "nu"}
+            and set(chain["2"]) <= {"count"}):
+        raise NotImplementedError(
+            "only the optax state of chain(clip_by_global_norm, adamw) maps onto "
+            "this package's optimizer; the JAX checkpoint holds another")
+    adam = chain["0"]
+    exp_avg = convert_params(adam["mu"], model)
+    exp_avg_sq = convert_params(adam["nu"], model)
+    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    return {i: {"step": step.clone(), "exp_avg": exp_avg[name],
+                "exp_avg_sq": exp_avg_sq[name]}
+            for i, (name, _) in enumerate(model.named_parameters())}
 
 
 def params_from_state_dict(state: Mapping) -> dict:

@@ -1,5 +1,6 @@
 """Plans / configuration management (copy of
-``nnuzoo_tpu/plans/plans_handler.py``, trimmed to what prediction and training read).
+``nnuzoo_tpu/plans/plans_handler.py``, trimmed to what planning, preprocessing,
+prediction and training read).
 
 JSON schema is kept compatible with the reference
 (`nnunetv2/utilities/plans_handling/plans_handler.py:31-346`): a plans file has
@@ -8,7 +9,9 @@ dataset-level keys (``dataset_name``, ``plans_name``, ``transpose_forward/backwa
 ``configurations`` dict whose entries support ``inherits_from`` inheritance (resolved
 recursively with cycle detection) and cascade wiring (``previous_stage``/``next_stage``).
 
-Resampling-function names in plans resolve through an explicit registry.
+Resampling-function and preprocessor names in plans resolve through explicit
+registries. The architecture fields name the JAX package's dynamic UNet; the
+port reads them as data and imports nothing by those names.
 """
 
 from copy import deepcopy
@@ -33,12 +36,25 @@ class ConfigurationManager:
         return self.configuration["data_identifier"]
 
     @property
+    def preprocessor_name(self) -> str:
+        return self.configuration["preprocessor_name"]
+
+    @property
+    def preprocessor_class(self):
+        from ..preprocessing.preprocessor import get_preprocessor_class_by_name
+        return get_preprocessor_class_by_name(self.preprocessor_name)
+
+    @property
     def batch_size(self) -> int:
         return self.configuration["batch_size"]
 
     @property
     def patch_size(self) -> List[int]:
         return self.configuration["patch_size"]
+
+    @property
+    def median_image_size_in_voxels(self) -> List[int]:
+        return self.configuration["median_image_size_in_voxels"]
 
     @property
     def spacing(self) -> List[float]:
@@ -68,6 +84,18 @@ class ConfigurationManager:
     @property
     def resampling_fn_probabilities(self):
         return self._resampling_fn("resampling_fn_probabilities")
+
+    @property
+    def network_arch_class_name(self) -> str:
+        return self.configuration["architecture"]["network_class_name"]
+
+    @property
+    def network_arch_init_kwargs(self) -> dict:
+        return self.configuration["architecture"]["arch_kwargs"]
+
+    @property
+    def network_arch_init_kwargs_req_import(self):
+        return self.configuration["architecture"].get("_kw_requires_import", ())
 
     @property
     def pool_op_kernel_sizes(self) -> Tuple[Tuple[int, ...], ...]:
@@ -132,6 +160,14 @@ class PlansManager:
         return self.plans["plans_name"]
 
     @property
+    def original_median_spacing_after_transp(self) -> List[float]:
+        return self.plans["original_median_spacing_after_transp"]
+
+    @property
+    def original_median_shape_after_transp(self) -> List[float]:
+        return self.plans["original_median_shape_after_transp"]
+
+    @property
     def image_reader_writer_class(self):
         from ..imageio.registry import find_reader_writer_by_name
         return find_reader_writer_by_name(self.plans["image_reader_writer"])
@@ -143,6 +179,14 @@ class PlansManager:
     @property
     def transpose_backward(self) -> List[int]:
         return self.plans["transpose_backward"]
+
+    @property
+    def available_configurations(self) -> List[str]:
+        return list(self.plans["configurations"].keys())
+
+    @property
+    def experiment_planner_name(self) -> str:
+        return self.plans["experiment_planner_used"]
 
     def get_label_manager(self, dataset_json: dict, **kwargs) -> LabelManager:
         return LabelManager(

@@ -2,7 +2,7 @@
 (reference: `nnunetv2/preprocessing/normalization/default_normalization_schemes.py:8-94`).
 
 Copy of ``nnuzoo_tpu/preprocessing/normalization.py`` (trimmed to what
-prediction calls); the port imports nothing of the JAX package.
+prediction and planning call); the port imports nothing of the JAX package.
 """
 
 from abc import ABC, abstractmethod
@@ -96,3 +96,18 @@ def get_normalization_class_by_name(name: str) -> Type[ImageNormalization]:
         raise RuntimeError(f"Unknown normalization scheme {name!r}. Known: {sorted(_SCHEMES)}")
     return _SCHEMES[name]
 
+
+
+def get_normalization_scheme_for_channel(channel_name: str) -> str:
+    """Channel name -> scheme (reference:
+    `preprocessing/normalization/map_channel_name_to_normalization.py`)."""
+    lower = channel_name.lower()
+    if lower == "ct":
+        return "CTNormalization"
+    if lower in ("nonorm", "nonormalization", "no_norm"):
+        return "NoNormalization"
+    if lower in ("rescale_to_0_1", "rescale_0_1", "rescaleto01"):
+        return "RescaleTo01Normalization"
+    if lower in ("rgb_to_0_1", "rgb_to_01", "rgbto01", "rgbto1"):
+        return "RGBTo01Normalization"
+    return "ZScoreNormalization"

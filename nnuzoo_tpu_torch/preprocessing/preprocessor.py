@@ -1,23 +1,30 @@
-"""Case preprocessing: transpose -> crop -> normalize -> resample.
+"""Case preprocessing: transpose -> crop -> normalize -> resample -> fg sampling.
 
-Copy of ``nnuzoo_tpu/preprocessing/preprocessor.py`` trimmed to
-``run_case_npy`` and ``run_case``, which is what prediction and the cascade
-input run. A segmentation is cropped and resampled with the image; the
-foreground-location sampling that training's preprocessing adds
-(``class_locations``), ``run_case_save`` and ``run`` wait for the port's
-``plan_and_preprocess``. The port imports nothing of the JAX package.
+This package's copy of ``nnuzoo_tpu/preprocessing/preprocessor.py``; the port
+imports nothing of the JAX package. ``run_case`` also takes a ``times`` dict.
 
 Semantics follow `nnunetv2/preprocessing/preprocessors/default_preprocessor.py:42-305`:
-normalization MUST run before resampling (the nonzero mask must still align).
+normalization MUST run before resampling (the nonzero mask must still align), the
+foreground-location sample uses RandomState(1234) with 10k samples / >=1% coverage per
+class-or-region, and outputs are saved as ``{case}.npz`` (data+seg) plus ``{case}.pkl``
+properties.
+
+Host-side orchestration uses a thread pool; the cases are written in any order,
+each to its own files.
 """
 
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Union
 
 import numpy as np
 
+from ..paths import get_preprocessed_folder, get_raw_folder
 from ..plans.plans_handler import ConfigurationManager, PlansManager
-from ..utilities.io import load_json
+from ..utilities.dataset_name_id import maybe_convert_to_dataset_name
+from ..utilities.dataset_utils import get_filenames_of_train_images_and_targets
+from ..utilities.io import join, load_json, maybe_mkdir, save_pickle
 from .cropping import crop_to_nonzero
 from .normalization import get_normalization_class_by_name
 from .resampling import compute_new_shape
@@ -67,6 +74,14 @@ class DefaultPreprocessor:
         if has_seg:
             seg = configuration_manager.resampling_fn_seg(
                 seg, new_shape, original_spacing, target_spacing)
+            label_manager = plans_manager.get_label_manager(
+                dataset_json if isinstance(dataset_json, dict) else load_json(dataset_json))
+            collect = list(label_manager.foreground_regions if label_manager.has_regions
+                           else label_manager.foreground_labels)
+            if label_manager.has_ignore_label:
+                collect.append(label_manager.all_labels)
+            properties["class_locations"] = self._sample_foreground_locations(
+                seg, collect, verbose=self.verbose)
             seg = self.modify_seg_fn(seg, plans_manager, dataset_json,
                                      configuration_manager)
             seg = seg.astype(np.int16 if np.max(seg) > 127 else np.int8)
@@ -97,6 +112,45 @@ class DefaultPreprocessor:
             times["preprocess_s"] = time.perf_counter() - t1
         return data, seg, data_properties
 
+    def run_case_save(self, output_filename_truncated: str, image_files: List[str],
+                      seg_file: Optional[str], plans_manager: PlansManager,
+                      configuration_manager: ConfigurationManager,
+                      dataset_json: Union[dict, str], continue_: bool = False):
+        if continue_ and os.path.isfile(output_filename_truncated + ".npz") and \
+                os.path.isfile(output_filename_truncated + ".pkl"):
+            return
+        data, seg, properties = self.run_case(image_files, seg_file, plans_manager,
+                                              configuration_manager, dataset_json)
+        if seg is not None:
+            np.savez_compressed(output_filename_truncated + ".npz", data=data, seg=seg)
+        else:
+            np.save(output_filename_truncated + ".npy", data)
+        save_pickle(properties, output_filename_truncated + ".pkl")
+
+    @staticmethod
+    def _sample_foreground_locations(seg: np.ndarray, classes_or_regions,
+                                     seed: int = 1234, verbose: bool = False) -> dict:
+        num_samples = 10000
+        min_percent_coverage = 0.01
+        rndst = np.random.RandomState(seed)
+        class_locs = {}
+        for c in classes_or_regions:
+            k = tuple(c) if isinstance(c, list) else c
+            if isinstance(c, (tuple, list)):
+                mask = np.isin(seg, np.asarray(c))
+            else:
+                mask = seg == c
+            all_locs = np.argwhere(mask)
+            if len(all_locs) == 0:
+                class_locs[k] = []
+                continue
+            target = min(num_samples, len(all_locs))
+            target = max(target, int(np.ceil(len(all_locs) * min_percent_coverage)))
+            class_locs[k] = all_locs[rndst.choice(len(all_locs), target, replace=False)]
+            if verbose:
+                print(c, target)
+        return class_locs
+
     def _normalize(self, data: np.ndarray, seg: Optional[np.ndarray],
                    configuration_manager: ConfigurationManager,
                    foreground_intensity_properties_per_channel: dict) -> np.ndarray:
@@ -108,3 +162,40 @@ class DefaultPreprocessor:
                     str(c), {}))
             data[c] = normalizer.run(data[c], seg[0] if seg is not None else None)
         return data
+
+    def run(self, dataset_name_or_id: Union[int, str], configuration_name: str,
+            plans_identifier: str, num_processes: int = 4, continue_: bool = False):
+        dataset_name = maybe_convert_to_dataset_name(dataset_name_or_id)
+        raw_folder = join(get_raw_folder(), dataset_name)
+        pp_root = join(get_preprocessed_folder(), dataset_name)
+        plans = PlansManager(join(pp_root, plans_identifier + ".json"))
+        cfg = plans.get_configuration(configuration_name)
+        dataset_json = load_json(join(raw_folder, "dataset.json"))
+        dataset = get_filenames_of_train_images_and_targets(raw_folder, dataset_json)
+
+        out_dir = join(pp_root, cfg.data_identifier)
+        maybe_mkdir(out_dir)
+
+        def one_case(item):
+            ident, files = item
+            self.run_case_save(join(out_dir, ident), files["images"], files["label"],
+                               plans, cfg, dataset_json, continue_=continue_)
+            return ident
+
+        if num_processes <= 1:
+            for item in dataset.items():
+                one_case(item)
+        else:
+            with ThreadPoolExecutor(max_workers=num_processes) as pool:
+                list(pool.map(one_case, dataset.items()))
+        if self.verbose:
+            print(f"Preprocessed {len(dataset)} cases -> {out_dir}")
+
+
+_PREPROCESSORS = {"DefaultPreprocessor": DefaultPreprocessor}
+
+
+def get_preprocessor_class_by_name(name: str):
+    if name not in _PREPROCESSORS:
+        raise RuntimeError(f"Unknown preprocessor {name!r}. Known: {sorted(_PREPROCESSORS)}")
+    return _PREPROCESSORS[name]

@@ -4,8 +4,10 @@ One process, one device. :func:`run_training` trains (or, with
 ``continue_training``, resumes from this package's checkpoints), then runs the
 final validation unless ``skip_validation``; ``only_run_validation`` loads
 ``checkpoint_final`` (else ``checkpoint_best``) and validates, and
-``validate_with_best`` validates the best checkpoint. Initialising from
-pretrained weights is not ported yet.
+``validate_with_best`` validates the best checkpoint. A checkpoint to continue
+may be the JAX package's (``Trainer.load_checkpoint``). Initialising from
+pretrained weights is the library function
+``run.load_pretrained_weights.load_pretrained_weights``, as in the JAX package.
 """
 
 from typing import Optional, Union

@@ -19,7 +19,9 @@ writer and scores them against ``gt_segmentations``.
 
 Not ported yet, each raising ``NotImplementedError``: SSL and translation
 targets, the encoder freeze of the fine-tuning trainer, device meshes and
-multi-process batches, bf16, and cascaded configurations.
+multi-process batches, bf16, and cascaded configurations (with a previous
+or a next stage). ``load_checkpoint`` also continues a fold that the JAX
+package trained with AdamW.
 """
 
 import os
@@ -33,6 +35,7 @@ import torch
 
 from .._device import resolve_device
 from ..configuration import ANISO_THRESHOLD
+from ..convert import adamw_state_from_optax, convert_params
 from ..data.augment import AugmentConfig, augment_train_batch, get_patch_size, \
     prepare_val_batch
 from ..data.dataset import DatasetNumpy, infer_dataset_class, unpack_dataset
@@ -43,6 +46,7 @@ from ..plans.label_handling import determine_num_input_channels
 from ..plans.plans_handler import PlansManager
 from ..utilities.crossval import generate_crossval_split
 from ..utilities.file_path_utilities import get_output_folder
+from ..utilities.flax_msgpack import msgpack_restore
 from ..utilities.io import (isfile, join, load_json, load_pickle, maybe_mkdir,
                             save_json, save_pickle)
 from .logger import TrainingLogger
@@ -149,6 +153,10 @@ class Trainer:
             raise NotImplementedError(
                 "cascaded configurations are not in nnuzoo_tpu_torch yet (their "
                 "augmentation waits)")
+        if self.configuration_manager.next_stage_names:
+            raise NotImplementedError(
+                "configurations with a next stage are not in nnuzoo_tpu_torch yet: "
+                "the final validation would not write predicted_next_stage/")
 
     @property
     def dataset_class(self):
@@ -667,13 +675,30 @@ class Trainer:
         save_pickle(checkpoint, filename)
 
     def load_checkpoint(self, filename_or_checkpoint) -> None:
+        """This package's checkpoint, or the JAX package's: its
+        ``network_weights`` and ``optimizer_state`` are flax msgpack bytes of
+        the params and of the optax state, of which only AdamW's maps here
+        (``convert.adamw_state_from_optax``)."""
         if not self.was_initialized:
             self.initialize()
         ckpt = filename_or_checkpoint
         if isinstance(ckpt, str):
             ckpt = load_pickle(ckpt)
-        self.model.load_state_dict(ckpt["network_weights"])
-        self.optimizer.load_state_dict(ckpt["optimizer_state"])
+        weights = ckpt["network_weights"]
+        if isinstance(weights, (bytes, bytearray)):
+            if not isinstance(self.optimizer, torch.optim.AdamW):
+                raise NotImplementedError(
+                    f"a JAX checkpoint continues only with AdamW, not "
+                    f"{type(self.optimizer).__name__}")
+            self.model.load_state_dict(
+                convert_params(msgpack_restore(weights), self.model))
+            optimizer_state = self.optimizer.state_dict()
+            optimizer_state["state"] = adamw_state_from_optax(
+                msgpack_restore(ckpt["optimizer_state"]), self.model)
+            self.optimizer.load_state_dict(optimizer_state)
+        else:
+            self.model.load_state_dict(weights)
+            self.optimizer.load_state_dict(ckpt["optimizer_state"])
         self.step = int(ckpt["step"])
         self.logger.load_checkpoint(ckpt["logging"])
         self._best_ema = ckpt["_best_ema"]

@@ -58,3 +58,20 @@ def subfiles(folder: str, prefix: str = None, suffix: str = None, sort: bool = T
     if sort:
         res.sort()
     return res
+
+
+def subdirs(folder: str, prefix: str = None, suffix: str = None, sort: bool = True,
+            join_path: bool = True) -> List[str]:
+    res = []
+    for f in os.listdir(folder):
+        full = os.path.join(folder, f)
+        if not os.path.isdir(full):
+            continue
+        if prefix is not None and not f.startswith(prefix):
+            continue
+        if suffix is not None and not f.endswith(suffix):
+            continue
+        res.append(full if join_path else f)
+    if sort:
+        res.sort()
+    return res

@@ -31,7 +31,9 @@ for wanted in ("training.trainer", "training.losses", "training.schedulers",
                "run.run_training", "ops.cross_scan", "ops.selective_scan",
                "models.ss2d", "imageio.registry", "imageio.natural",
                "imageio.tiff", "evaluation.metrics", "utilities.flax_msgpack",
-               "utilities.dataset_utils", "cli.entry_points", "cli.__main__"):
+               "utilities.dataset_utils", "cli.entry_points", "cli.__main__",
+               "planning.api", "planning.planner", "planning.fingerprint",
+               "utilities.json_export", "run.load_pretrained_weights"):
     assert "nnuzoo_tpu_torch." + wanted in names, wanted
 """
 

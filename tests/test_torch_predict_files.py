@@ -187,9 +187,7 @@ def test_cascade_input_preprocesses_as_jax(setup, prev_stage, case):
                                         times)
     assert got.shape[0] == 3 and got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
-    _assert_same(got_props,
-                 {k: v for k, v in want_props.items() if k != "class_locations"},
-                 "properties")
+    _assert_same(got_props, want_props, "properties")
     assert sorted(times) == ["preprocess_s", "read_s"]
 
 
@@ -212,9 +210,7 @@ def test_run_case_matches_jax(setup, prev_stage, with_seg):
         np.testing.assert_array_equal(got_seg, want_seg)
     else:
         assert got_seg is None
-    _assert_same(got_props,
-                 {k: v for k, v in want_props.items() if k != "class_locations"},
-                 "properties")
+    _assert_same(got_props, want_props, "properties")
     assert sorted(times) == ["preprocess_s", "read_s"]
 
 

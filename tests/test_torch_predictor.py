@@ -172,8 +172,8 @@ def test_preprocessing_copy_matches_jax():
 
 def test_preprocessing_copy_with_mask_for_norm_matches_jax():
     """``use_mask_for_norm`` normalizes inside the crop's nonzero mask only;
-    with a segmentation, that is cropped and resampled alongside, as in the
-    JAX package (which adds the foreground locations of training)."""
+    with a segmentation, that is cropped and resampled alongside, and the
+    foreground locations of training are sampled, as in the JAX package."""
     vol = _volume()
     vol[:, :, :2] = 0                         # cropped away
     vol[:, :, 2:8, :5] = 0                    # inside the crop, outside the mask
@@ -196,7 +196,11 @@ def test_preprocessing_copy_with_mask_for_norm_matches_jax():
     assert got_s.dtype == want_s.dtype
     np.testing.assert_array_equal(got_s, want_s)
     assert set(np.unique(got_s)) == {-1, 0, 1, 2}
-    assert "class_locations" not in got_props
+    assert sorted(got_props["class_locations"]) == \
+        sorted(want_props["class_locations"]) == [1, 2]
+    for k, locs in want_props["class_locations"].items():
+        assert got_props["class_locations"][k].dtype == locs.dtype
+        np.testing.assert_array_equal(got_props["class_locations"][k], locs)
     for k in ("shape_before_cropping", "bbox_used_for_cropping",
               "shape_after_cropping_and_before_resampling"):
         assert got_props[k] == want_props[k], k
