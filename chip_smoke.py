@@ -12,7 +12,8 @@ Phases, one line each (a failure anywhere exits non-zero):
      the carries it writes for the backward, and the backward kernel on those
      carries against its plain version at batch 12, each also at L=12, at
      K*Dh=1024 and on steep-decay inputs (delta up to 4, A down to -16), with
-     errors, times and bounds;
+     errors, times and bounds; then both kernels again at each (L, K*Dh) of
+     M2Net's that M2NetP does not have (K*Dh 256, 512 and 1024);
   3. one SS2D (forward, and backward for the input and every parameter) and
      one MU at stage-1 width and 256x224, kernel path against plain path;
   4. serving end to end: M2NetP at full width and depth (7, 6, 5, 4), seeded
@@ -50,7 +51,8 @@ Phases, one line each (a failure anywhere exits non-zero):
      orientations (K3 at batch 4 as serving runs it, timed without carries,
      and at batch 12 as training does, timed with them; K4 at batch 12 on
      K3's carries), at L=12, a ragged L and M2Net's width, with errors,
-     times and bounds;
+     times and bounds; then both again at each (L, Dh, R) of M2Net's that
+     M2NetP does not have (Dh 64, 128 and 256 with R 2, 4 and 8);
  10. one SS2D at stage-1 width with the fused glue against the default
      glue, forward and every gradient, both on the kernels;
  11. serving with the fused glue (``NNUZOO_SS2D_FUSED=1``): phase 4 again,
@@ -69,15 +71,30 @@ Phases, one line each (a failure anywhere exits non-zero):
      validation, ``predict_from_modelfolder`` on the test images and
      ``evaluate_simple`` against their labels; seconds of fingerprint,
      planning and preprocessing per case, seconds per step and Dice;
- 15. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
-     on every path;
- 16. last line ``{"ok": true, "device": {...}}``.
+ 15. M2Net (``nnUNetTrainerM2Net``) at full width and depth, each glue
+     (after phase 4, and after phase 11 with the fused glue): phase 4's
+     serving and tile-batch checks, 80 K1 or 160 K3 launches a forward;
+ 16. M2Net training, each glue (after phase 8, and after phase 13): phase
+     5 on phase 5's dataset, 80 K1 and 80 K2 or 160 K3 and 160 K4 launches
+     a step; with the default glue one full-depth step on seeded weights
+     against fp64, held to phase 6's full-depth rule (the kernel path's
+     error norm within 3x the fp32 plain path's);
+ 17. the fine-tuning trainer (``nnUNetTrainerFineTuneDecoderWarmUp``,
+     M2Net) from phase 16's fold through ``load_pretrained_weights``: 2
+     steps with the encoder frozen, every frozen parameter bit for bit the
+     loaded one, then 2 steps after which every one has moved;
+ 18. one M2Net step at batch 12 with ``remat`` off, off again and on, each
+     glue: the forward kernel's launches with remat on the remat-off count,
+     the peak memory of each, the gradients held to the remat-off step's;
+ 19. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
+     on every path, M2Net's under the key ``m2net``;
+ 20. last line ``{"ok": true, "device": {...}}``.
 Every line is also written to ``chiprun_out/chip_smoke.jsonl``.
 ``--profile`` adds torch.profiler tables of one tile batch and of one
 training step under ``chiprun_out/``, for each glue. fp32 throughout (but
-for the fp64 references of phases 4, 6, 11 and 12), TF32 off for matmuls and
-convolutions. Phase 14 runs the port's own planning and preprocessing on the
-host (numpy and scipy, 4 threads).
+for the fp64 references of phases 4, 6, 11, 12, 15 and 16), TF32 off for
+matmuls and convolutions. Phase 14 runs the port's own planning and
+preprocessing on the host (numpy and scipy, 4 threads).
 """
 
 import contextlib
@@ -105,6 +122,19 @@ SCANS_PER_FORWARD = sum(n for _, n in PATH_SHAPES)
 # cross-scan calls (one per orientation) where the default glue makes one scan
 CROSS_G, CROSS_DH, CROSS_R = 2, 32, 1
 FUSED_PER_FORWARD = 2 * SCANS_PER_FORWARD
+# M2Net at 256x224: each stage's SS2D d_model and its (L, scan calls with
+# that L in one forward), the stage and its decoder twin together; 80 calls
+# in all. The default glue scans K*Dh = 4*2*d_model channels; the fused glue
+# G=2 streams of Dh = 2*d_model with dt rank R = ceil(d_model/16).
+M2NET_STAGES = [
+    (16, [(57344, 4), (14336, 4), (3584, 4), (896, 4), (224, 4), (56, 6)]),
+    (32, [(14336, 4), (3584, 4), (896, 4), (224, 4), (56, 6)]),
+    (64, [(3584, 4), (896, 4), (224, 4), (56, 6)]),
+    (128, [(896, 4), (224, 4), (56, 6)])]
+# {(L, K*Dh): calls in one forward} and {(L, Dh, R): calls in each orientation}
+M2NET_SCANS = {(L, 8 * d): n for d, shapes in M2NET_STAGES for L, n in shapes}
+M2NET_CROSS = {(L, 2 * d, -(-d // 16)): n for d, shapes in M2NET_STAGES
+               for L, n in shapes}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -277,19 +307,25 @@ def scan_inputs(batch, L, kd, n, k, seed, steep=False):
     return (u, delta, A_t, bc), dy
 
 
-def phase_scan_kernels():
+# K1/K2's shapes (L, K*Dh, steep) for M2NetP: the path's lengths, L=12,
+# K*Dh=1024 and steep decay (off the path: its L is none of the path's);
+# and for M2Net, its (L, K*Dh) pairs other than M2NetP's K*Dh
+SCAN_SHAPES = {
+    "M2NetP": [(L, KD, False) for L, _ in PATH_SHAPES] + [
+        (12, KD, False), (56, 1024, False), (3000, KD, True)],
+    "M2Net": [(L, kd, False) for L, kd in M2NET_SCANS if kd != KD]}
+
+
+def phase_scan_kernels(model="M2NetP", seed=0):
     """Forward kernel at the serving and the training batch, backward kernel
-    at the training batch: error against the plain version, times, bound."""
+    at the training batch, at the shapes of SCAN_SHAPES[model]: error against
+    the plain version, times, bound."""
     import torch
     from nnuzoo_tpu_torch.ops.selective_scan import (
         _pick_chunk, scan_core, scan_core_bwd, scan_core_bwd_plain,
         scan_core_plain)
-    # the path's lengths, L=12, K*Dh=1024 and steep decay (off the path:
-    # its L is none of the path's)
-    shapes = [(L, KD, False) for L, _ in PATH_SHAPES] + [
-        (12, KD, False), (56, 1024, False), (3000, KD, True)]
     fwd_rows, bwd_rows = [], []
-    for i, (L, kd, steep) in enumerate(shapes):
+    for i, (L, kd, steep) in enumerate(SCAN_SHAPES[model], start=seed):
         for b in (TILE_BATCH, TRAIN_BATCH):
             args, dy = scan_inputs(b, L, kd, N_STATE, K_DIRS, seed=i, steep=steep)
             # serving asks for no carries, training for the backward's
@@ -307,8 +343,8 @@ def phase_scan_kernels():
                 ms = time_ms(lambda: scan_core(*args, return_carries=train), reps=20)
                 plain_ms = time_ms(lambda: scan_core_plain(*args), reps=2, warmup=1)
             bound_ms, bound_by = scan_bound(b, L, kd, N_STATE, K_DIRS)
-            row = dict(B=b, L=L, KD=kd, N=N_STATE, steep=steep, carries=train,
-                       max_abs_err=err, rel_err=err / scale,
+            row = dict(model=model, B=b, L=L, KD=kd, N=N_STATE, steep=steep,
+                       carries=train, max_abs_err=err, rel_err=err / scale,
                        carries_rel_err=carries_err / max(carries_scale, 1e-30),
                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by)
@@ -335,7 +371,7 @@ def phase_scan_kernels():
                                    reps=1, warmup=1)
             del got, want
             bound_ms, bound_by = scan_bwd_bound(b, L, kd, N_STATE, K_DIRS)
-            row = dict(B=b, L=L, KD=kd, N=N_STATE, steep=steep,
+            row = dict(model=model, B=b, L=L, KD=kd, N=N_STATE, steep=steep,
                        max_abs_err=max(e for e, _ in errs.values()),
                        rel_err={k: e / m for k, (e, m) in errs.items()},
                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -399,20 +435,27 @@ def cross_inputs(batch, L, g, dh, r, seed, n=N_STATE):
     return streams, [wx, wdt, dtb, A, Ds], rnd(batch, L, g * dh)
 
 
-def phase_cross_scan_kernels():
+# K3/K4's shapes (L, G, Dh, R) for M2NetP: the path's lengths, L=12, a ragged
+# L and M2Net's widest; and for M2Net, its (L, Dh, R) other than M2NetP's
+CROSS_SHAPES = {
+    "M2NetP": [(L, CROSS_G, CROSS_DH, CROSS_R) for L, _ in PATH_SHAPES] + [
+        (12, CROSS_G, CROSS_DH, CROSS_R), (1000, CROSS_G, CROSS_DH, CROSS_R),
+        (56, CROSS_G, 256, 8)],
+    "M2Net": [(L, CROSS_G, dh, r) for L, dh, r in M2NET_CROSS if dh != CROSS_DH]}
+
+
+def phase_cross_scan_kernels(model="M2NetP", seed=100):
     """K3 at the serving and the training batch, K4 at the training batch,
-    both orientations: errors against the plain versions, times, bounds."""
+    both orientations, at the shapes of CROSS_SHAPES[model]: errors against
+    the plain versions, times, bounds."""
     import torch
     from nnuzoo_tpu_torch.ops.cross_scan import (
         cross_scan_bwd, cross_scan_bwd_plain, cross_scan_fwd, cross_scan_ref)
-    shapes = [(L, CROSS_G, CROSS_DH, CROSS_R) for L, _ in PATH_SHAPES] + [
-        (12, CROSS_G, CROSS_DH, CROSS_R), (1000, CROSS_G, CROSS_DH, CROSS_R),
-        (56, CROSS_G, 256, 8)]
     names = ("d_streams", "dWx", "dWdt", "dbias", "dA", "dD")
     fwd_rows, bwd_rows = [], []
-    for i, (L, g, dh, r) in enumerate(shapes):
+    for i, (L, g, dh, r) in enumerate(CROSS_SHAPES[model], start=seed):
         for b in (TILE_BATCH, TRAIN_BATCH):
-            streams, w, dy = cross_inputs(b, L, g, dh, r, seed=100 + i)
+            streams, w, dy = cross_inputs(b, L, g, dh, r, seed=i)
             for reverse in (False, True):
                 with torch.inference_mode():
                     y, carries = cross_scan_fwd(streams, *w, reverse,
@@ -429,9 +472,10 @@ def phase_cross_scan_kernels():
                                        reps=2, warmup=1)
                 del y, want
                 bound_ms, bound_by = cross_bound(b, L, g, dh, N_STATE, r, False)
-                row = dict(B=b, L=L, G=g, Dh=dh, R=r, reverse=reverse,
-                           carries=train, max_abs_err=err, rel_err=err / scale, ms=ms,
-                           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                row = dict(model=model, B=b, L=L, G=g, Dh=dh, R=r,
+                           reverse=reverse, carries=train, max_abs_err=err,
+                           rel_err=err / scale, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
                 emit("cross_scan_kernel", **row)
                 if not err <= CROSS_TOL * scale:
                     raise AssertionError(f"K3 disagrees at {row}")
@@ -451,7 +495,8 @@ def phase_cross_scan_kernels():
                         streams, *w, dy, reverse), reps=1, warmup=1)
                 del got, want
                 bound_ms, bound_by = cross_bound(b, L, g, dh, N_STATE, r, True)
-                row = dict(B=b, L=L, G=g, Dh=dh, R=r, reverse=reverse,
+                row = dict(model=model, B=b, L=L, G=g, Dh=dh, R=r,
+                           reverse=reverse,
                            max_abs_err=max(e for e, _ in errs.values()),
                            rel_err={k: e / m for k, (e, m) in errs.items()},
                            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -604,9 +649,9 @@ def plans_and_dataset():
     return plans, dataset_json
 
 
-def phase_end_to_end(profile, glue="default"):
-    """Serving with one SS2D glue. Returns the forward kernel's launches of
-    the timed prediction."""
+def phase_end_to_end(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"):
+    """Serving with one SS2D glue and the model of ``trainer_name``. Returns
+    the forward kernel's launches of the timed prediction."""
     import numpy as np
     import torch
     from nnuzoo_tpu_torch.inference.predictor import Predictor
@@ -622,14 +667,14 @@ def phase_end_to_end(profile, glue="default"):
     cfg = pm.get_configuration("2d")
     t0 = time.perf_counter()
     with ss2d_glue(glue):
-        model = get_model_builder("nnUNetTrainerM2NetP")(
+        model = get_model_builder(trainer_name)(
             pm, dataset_json, cfg, 1, deep_supervision=False, device="cuda",
             seed=0)
     predictor = Predictor(tile_step_size=0.5, use_gaussian=True,
                           use_mirroring=True, tile_batch_size=TILE_BATCH,
                           device="cuda")
     predictor.manual_initialization(model, [model.state_dict()], pm, cfg,
-                                    dataset_json, "nnUNetTrainerM2NetP", (0, 1))
+                                    dataset_json, trainer_name, (0, 1))
     build_s = time.perf_counter() - t0
     rng = np.random.RandomState(0)
     volume = (100 * rng.rand(1, 4, 224, 256)).astype(np.float32)
@@ -648,7 +693,8 @@ def phase_end_to_end(profile, glue="default"):
     other_launches = sum(k.launches for k in others)
 
     labels = sorted(int(v) for v in np.unique(seg))
-    emit("end_to_end", glue=glue, model_build_s=build_s,
+    emit("end_to_end", glue=glue, trainer=trainer_name,
+         model=type(model).__name__, model_build_s=build_s,
          seconds_per_volume=seconds, volume=list(volume.shape),
          segmentation_shape=list(seg.shape), labels=labels, forwards=forwards,
          scan_launches=launches, other_glue_launches=other_launches,
@@ -677,7 +723,7 @@ def phase_end_to_end(profile, glue="default"):
     reference = Predictor(use_mirroring=True, tile_batch_size=TILE_BATCH,
                           device="cuda")
     reference.manual_initialization(model64, [model64.state_dict()], pm, cfg,
-                                    dataset_json, "nnUNetTrainerM2NetP", (0, 1))
+                                    dataset_json, trainer_name, (0, 1))
     want = reference.tile_forward(tiles.double())
     del reference, model64
     readings = {}
@@ -686,7 +732,7 @@ def phase_end_to_end(profile, glue="default"):
         c["argmax_agreement"] = (out.argmax(-1) == want.argmax(-1)).float().mean().item()
         readings[name] = c
     readings["kernel_vs_plain_fp32"] = compare(got, plain)
-    emit("tile_logits", glue=glue, **readings)
+    emit("tile_logits", glue=glue, model=type(model).__name__, **readings)
     for name in ("kernel_vs_fp64", "plain_fp32_vs_fp64"):
         c = readings[name]
         if not (c["max_abs"] <= TILE_MAX_TOL * c["range_ref"]
@@ -697,7 +743,7 @@ def phase_end_to_end(profile, glue="default"):
             <= KERNEL_MEAN_RATIO * readings["plain_fp32_vs_fp64"]["mean_abs"]):
         raise AssertionError(f"tile logits: the kernel path is further from "
                              f"fp64 than the fp32 plain path: {readings}")
-    if profile:
+    if profile and trainer_name == "nnUNetTrainerM2NetP":
         profile_tile_batch(predictor, tiles, glue)
     return launches
 
@@ -822,20 +868,24 @@ def write_test_folder(root, cases=2, shape=(4, 224, 256), seed=5):
     return images, labels
 
 
-def phase_training(profile, glue="default"):
-    """``Trainer.run_training()`` for one epoch of TRAIN_STEPS steps and one
-    validation step, with one SS2D glue. Returns the trainer, the scan
-    launches (forward, backward) of the run and the weights it ended with."""
+def phase_training(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"):
+    """``Trainer.run_training()`` of ``trainer_name`` for one epoch of
+    TRAIN_STEPS steps and one validation step, with one SS2D glue, on the
+    seeded dataset (written unless it is there). Returns the trainer, the
+    scan launches (forward, backward) of the run and the weights it ended
+    with."""
     import numpy as np
     import torch
     from nnuzoo_tpu_torch.training.trainer import Trainer
 
     fwd_kernel, bwd_kernel, per_forward, others = glue_kernels(glue)
     plans, dataset_json = plans_and_dataset()
-    write_dataset(os.path.join(os.environ["nnUNet_preprocessed"],
-                               plans["dataset_name"], "nnUNetPlans_2d"))
+    folder = os.path.join(os.environ["nnUNet_preprocessed"], plans["dataset_name"],
+                          "nnUNetPlans_2d")
+    if not os.path.isdir(folder):
+        write_dataset(folder)
     trainer = Trainer(plans, "2d", "all", dataset_json, num_epochs=1,
-                      trainer_name="nnUNetTrainerM2NetP", device="cuda", seed=0)
+                      trainer_name=trainer_name, device="cuda", seed=0)
     trainer.config = replace(trainer.config, num_iterations_per_epoch=TRAIN_STEPS,
                              num_val_iterations_per_epoch=1)
     with ss2d_glue(glue):
@@ -875,7 +925,8 @@ def phase_training(profile, glue="default"):
 
     losses = [s["loss"] for s in steps]
     log = trainer.logger.my_fantastic_logging
-    emit("training", glue=glue, steps=steps, losses=losses,
+    emit("training", glue=glue, trainer=trainer_name,
+         model=type(trainer.model).__name__, steps=steps, losses=losses,
          loss_fell=losses[-1] < losses[0],
          seconds_per_step_after_first=float(np.mean([s["seconds"]
                                                      for s in steps[1:]])),
@@ -890,21 +941,20 @@ def phase_training(profile, glue="default"):
         raise AssertionError(f"training losses {losses}, val {log['val_losses']}")
     if tuple(batches[0][0].shape[:2]) != (TRAIN_BATCH, 1):
         raise AssertionError(f"batch shape {batches[0][0].shape}")
-    # with remat off a step runs one forward and one backward of the model;
-    # with it on, stages run forwards again
+    # a step runs one forward and one backward of the model's scans (a
+    # rematted stage keeps its scans' outputs)
     for s in steps:
-        if s["bwd_launches"] != per_forward or s["fwd_launches"] < per_forward or \
-                (not trainer.model.remat and s["fwd_launches"] != per_forward):
+        if s["bwd_launches"] != per_forward or s["fwd_launches"] != per_forward:
             raise AssertionError(f"scan launches of a step: {s}")
     # the validation step is one more forward
     if launches[1] != TRAIN_STEPS * per_forward or \
-            launches[0] < (TRAIN_STEPS + 1) * per_forward or other_launches:
+            launches[0] != (TRAIN_STEPS + 1) * per_forward or other_launches:
         raise AssertionError(f"scan launches of the run: {launches}, "
                              f"{other_launches} of the other glue's kernels")
     for name in ("checkpoint_final.pth", "checkpoint_best.pth"):
         if not os.path.isfile(os.path.join(trainer.output_folder, name)):
             raise AssertionError(f"{name} was not written")
-    if profile:
+    if profile and trainer_name == "nnUNetTrainerM2NetP":
         profile_train_step(trainer, *batches[-1], glue=glue)
     return trainer, launches, trained
 
@@ -1050,15 +1100,15 @@ def augmented(trainer, data, seg):
             data, seg)
 
 
-def seeded_batch(trainer, seed=STEP_SEED):
-    """STEP_BATCH patches that a sampler of its own, seeded with ``seed``,
-    draws from the trainer's dataset: the same batch on every run, whatever
-    the trainer's own sampler did."""
+def seeded_batch(trainer, seed=STEP_SEED, batch_size=STEP_BATCH):
+    """``batch_size`` patches that a sampler of its own, seeded with
+    ``seed``, draws from the trainer's dataset: the same batch on every run,
+    whatever the trainer's own sampler did."""
     import torch
     from nnuzoo_tpu_torch.data.patch_sampler import PatchSampler
     patch = tuple(trainer.configuration_manager.patch_size)
     sampler = PatchSampler(
-        trainer.dataset_class(trainer.preprocessed_dataset_folder), STEP_BATCH,
+        trainer.dataset_class(trainer.preprocessed_dataset_folder), batch_size,
         initial_patch_size=trainer.train_aug_cfg.initial_patch_size[-len(patch):],
         final_patch_size=patch, label_manager=trainer.label_manager,
         oversample_foreground_percent=trainer.local_oversample, seed=seed)
@@ -1138,6 +1188,179 @@ def phase_step_agreement(trainer, glue="default"):
         raise AssertionError(f"training step at full depth: the kernel path's "
                              f"gradients are further from fp64 than the fp32 "
                              f"plain path's: {readings}")
+
+
+def phase_m2net_step_agreement(trainer):
+    """M2Net at full depth, default glue: one training step's loss and
+    gradients from weights drawn from STEP_SEED on the batch of STEP_SEED,
+    kernel path and fp32 plain path against the plain path in fp64, under
+    phase 6's full-depth rule: the kernel path's error norm within
+    ``kernel_over_plain`` of the fp32 plain path's. M2NetP's absolute
+    full-depth limits are not assumed to hold for M2Net, whose norms sit
+    after 512- and 256-channel PatchExpands: its distances are reported."""
+    from nnuzoo_tpu_torch.models.registry import get_model_builder
+    model = get_model_builder(trainer.trainer_name)(
+        trainer.plans_manager, trainer.dataset_json, trainer.configuration_manager,
+        trainer.num_input_channels, True, device="cuda", seed=STEP_SEED)
+    readings, reference = step_readings(
+        trainer, model, *augmented(trainer, *seeded_batch(trainer)))
+    del model
+    emit("step_agreement", glue="default", model="M2Net", depth="full_depth",
+         batch=STEP_BATCH, seed=STEP_SEED, sampler_seed=STEP_SEED,
+         kernel_over_plain=readings["kernel"]["grad_err_norm"]
+         / readings["plain_fp32"]["grad_err_norm"], **reference, **readings)
+    limit = STEP_LIMITS["kernel_over_plain"]
+    if not (all(r["finite"] for r in readings.values())
+            and readings["kernel"]["grad_err_norm"]
+            <= limit * readings["plain_fp32"]["grad_err_norm"]):
+        raise AssertionError(f"M2Net training step at full depth: the kernel "
+                             f"path's gradients against fp64, {readings}")
+
+
+M2NET = "nnUNetTrainerM2Net"
+FINETUNE = "nnUNetTrainerFineTuneDecoderWarmUp"
+FINETUNE_STEPS = 2       # steps with the encoder frozen, then as many without
+
+
+def phase_finetune(m2net_trainer):
+    """``nnUNetTrainerFineTuneDecoderWarmUp`` (M2Net) from the M2Net fold's
+    final checkpoint through ``load_pretrained_weights``, its configuration
+    cut to an epoch of FINETUNE_STEPS steps with the encoder frozen and one
+    without (one validation step each): every frozen parameter must be bit
+    for bit the loaded one after each frozen step, and every one must have
+    moved after the unfrozen steps. Returns the K1 and K2 launches of the
+    run."""
+    import torch
+    from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
+    from nnuzoo_tpu_torch.run.load_pretrained_weights import load_pretrained_weights
+    from nnuzoo_tpu_torch.training.trainer import Trainer
+
+    plans, dataset_json = plans_and_dataset()
+    with ss2d_glue("default"):
+        trainer = Trainer(plans, "2d", "all", dataset_json, trainer_name=FINETUNE,
+                          device="cuda", seed=0)
+        trainer.config = replace(
+            trainer.config, num_epochs=2, num_iterations_per_epoch=FINETUNE_STEPS,
+            num_val_iterations_per_epoch=1, freeze_encoder_epochs=1,
+            encoder_warmup_epochs=1, decoder_warmup_epochs=1)
+        trainer.initialize()
+    state, transferred = load_pretrained_weights(
+        trainer.model, os.path.join(m2net_trainer.output_folder,
+                                    "checkpoint_final.pth"))
+    trainer.model.load_state_dict(state)
+    names = set(Trainer._encoder_freeze_mask(trainer.model))
+    frozen = {n: p for n, p in trainer.model.named_parameters() if n in names}
+    loaded = {n: p.detach().clone() for n, p in frozen.items()}
+    steps = []
+    inner = trainer.train_step
+
+    def observed_step(data, seg):
+        torch.cuda.synchronize()
+        before = scan_core.launches, scan_core_bwd.launches
+        t0 = time.perf_counter()
+        loss = inner(data, seg)
+        torch.cuda.synchronize()
+        steps.append(dict(
+            step=trainer.step, seconds=time.perf_counter() - t0, loss=loss.item(),
+            lr=trainer.optimizer.param_groups[0]["lr"],
+            k1_launches=scan_core.launches - before[0],
+            k2_launches=scan_core_bwd.launches - before[1],
+            frozen_as_loaded=sum(torch.equal(p, loaded[n])
+                                 for n, p in frozen.items())))
+        return loss
+
+    trainer.train_step = observed_step
+    scan_core.launches = scan_core_bwd.launches = 0
+    trainer.run_training()
+    trainer.train_step = inner
+    launches = scan_core.launches, scan_core_bwd.launches
+    moved = sum(not torch.equal(p, loaded[n]) for n, p in frozen.items())
+    emit("finetune", trainer=FINETUNE, model=type(trainer.model).__name__,
+         transferred_arrays=transferred, arrays=len(state),
+         frozen_parameters=len(frozen),
+         parameters=len(list(trainer.model.parameters())), steps=steps,
+         frozen_moved_after_unfreeze=moved, k1_launches=launches[0],
+         k2_launches=launches[1])
+    if len(steps) != 2 * FINETUNE_STEPS or not 0 < transferred < len(state):
+        raise AssertionError(f"fine-tuning: {len(steps)} steps, {transferred} "
+                             f"arrays transferred")
+    if any(s["frozen_as_loaded"] != len(frozen) for s in steps[:FINETUNE_STEPS]):
+        raise AssertionError(f"fine-tuning: frozen parameters changed while "
+                             f"frozen: {steps}")
+    if moved != len(frozen) or any(
+            s["k1_launches"] != SCANS_PER_FORWARD
+            or s["k2_launches"] != SCANS_PER_FORWARD for s in steps):
+        raise AssertionError(f"fine-tuning: {moved} of {len(frozen)} frozen "
+                             f"parameters moved after the unfreeze; {steps}")
+    return launches
+
+
+def phase_remat(trainer, glue="default"):
+    """One M2Net training step (weights from STEP_SEED, the TRAIN_BATCH
+    patches of sampler seed STEP_SEED augmented once, DropPath off) with
+    ``remat`` off, off again and on: the scan forward kernel's launches of
+    the step with remat on must be the remat-off count (a rematted stage
+    keeps its scans' outputs), and its gradients the remat-off step's within
+    twice the spread of two remat-off steps (nondeterministic sums in the
+    library's backward kernels) plus 1e-6 of the gradient's norm. Returns the
+    forward kernel's launches of the remat-on step."""
+    import torch
+    from nnuzoo_tpu_torch.models.layers import DropPath
+    from nnuzoo_tpu_torch.models.registry import get_model_builder
+
+    fwd_kernel, bwd_kernel, per_forward, _ = glue_kernels(glue)
+    with ss2d_glue(glue):
+        model = get_model_builder(trainer.trainer_name)(
+            trainer.plans_manager, trainer.dataset_json,
+            trainer.configuration_manager, trainer.num_input_channels, True,
+            device="cuda", seed=STEP_SEED)
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.rate = 0.0
+    model.train()
+    data_aug, targets = augmented(
+        trainer, *seeded_batch(trainer, batch_size=TRAIN_BATCH))
+    params = list(model.parameters())
+
+    def step(remat):
+        model.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_kernel.launches = bwd_kernel.launches = 0
+        t0 = time.perf_counter()
+        loss = trainer._compute_loss(
+            model(data_aug.movedim(1, -1).contiguous()), targets)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        return dict(seconds=time.perf_counter() - t0,
+                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                    fwd_launches=fwd_kernel.launches,
+                    bwd_launches=bwd_kernel.launches, loss=loss.item()), grads
+
+    def err_norm(a, b):
+        return torch.sqrt(sum(((x - y).double() ** 2).sum()
+                              for x, y in zip(a, b))).item()
+
+    off, g_off = step(False)
+    off2, g_off2 = step(False)
+    on, g_on = step(True)
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in g_off)).item()
+    spread, err = err_norm(g_off2, g_off), err_norm(g_on, g_off)
+    worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(g_on, g_off))
+    emit("remat", glue=glue, model=type(model).__name__, batch=TRAIN_BATCH,
+         remat_off=off, remat_off_again=off2, remat_on=on, grad_norm=norm,
+         remat_on_err_norm=err, remat_off_spread_norm=spread,
+         worst_param_rel_err=worst)
+    del model, g_off, g_off2, g_on
+    torch.cuda.empty_cache()
+    if not (on["fwd_launches"] == off["fwd_launches"] == per_forward
+            and on["bwd_launches"] == off["bwd_launches"] == per_forward):
+        raise AssertionError(f"remat: scan launches on {on}, off {off}")
+    if not err <= 2 * spread + 1e-6 * norm:
+        raise AssertionError(f"remat: gradients {err} off the remat-off step's "
+                             f"(spread {spread}, norm {norm})")
+    return on["fwd_launches"]
 
 
 def phase_train_save_predict(trainer, trained):
@@ -1453,6 +1676,28 @@ def kernel_entry(name, source, replaces, launches, rows, path, weight, per,
             "per": per, **more, "shapes": rows}
 
 
+def m2net_entry(shared_rows, own_rows, calls, key, per, launches_by_path):
+    """A kernel's M2Net rows: the times of one training step (the rows at
+    the training batch weighted by M2Net's calls of each shape, ``key`` of a
+    row; M2Net's own rows, and M2NetP's where M2Net has none of that shape),
+    of one serving forward where the kernel serves, the launches on M2Net's
+    paths and the rows of M2Net's own shapes."""
+    own = {key(r) for r in own_rows}
+    rows = own_rows + [r for r in shared_rows if key(r) not in own]
+
+    def total(batch, field):
+        return sum(calls[key(r)] * r[field] for r in rows
+                   if r["B"] == batch and key(r) in calls)
+    entry = {"per": per, "launches_by_path": launches_by_path,
+             **{field: total(TRAIN_BATCH, field)
+                for field in ("ms", "plain_ms", "bound_ms")},
+             "max_abs_err": max(r["max_abs_err"] for r in own_rows),
+             "shapes": own_rows}
+    if any(r["B"] == TILE_BATCH for r in rows):
+        entry["serving_forward_ms"] = total(TILE_BATCH, "ms")
+    return entry
+
+
 def on_path(rows, weight, batch, **widths):
     """The rows at the main paths' lengths, the given batch and widths."""
     return [r for r in rows if r["L"] in weight and r["B"] == batch
@@ -1482,8 +1727,11 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda)
 
     fwd_rows, bwd_rows = phase_scan_kernels()
+    m2_fwd_rows, m2_bwd_rows = phase_scan_kernels("M2Net", seed=1000)
     phase_blocks()
     serving_launches = phase_end_to_end(profile)
+    torch.cuda.empty_cache()
+    m2 = {"serving": phase_end_to_end(profile, trainer_name=M2NET)}
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
@@ -1493,12 +1741,24 @@ def main():
         phase_train_save_predict(trainer, trained)
         validation_launches, files_launches = phase_files_and_validation(trainer)
         del trainer, trained
+        torch.cuda.empty_cache()
+        # M2Net on the same dataset: training, one step against fp64, the
+        # fine-tuning trainer from its fold, and a step with remat
+        trainer, m2["training"], _ = phase_training(profile, trainer_name=M2NET)
+        phase_m2net_step_agreement(trainer)
+        m2["finetune"] = phase_finetune(trainer)
+        m2["remat"] = phase_remat(trainer)
+        del trainer
     torch.cuda.empty_cache()
 
     # the fused cross-scan glue (NNUZOO_SS2D_FUSED=1): K3 and K4
     cross_fwd_rows, cross_bwd_rows = phase_cross_scan_kernels()
+    m2_cross_fwd_rows, m2_cross_bwd_rows = phase_cross_scan_kernels("M2Net",
+                                                                    seed=1100)
     phase_fused_ss2d()
     fused_serving_launches = phase_end_to_end(profile, "fused")
+    torch.cuda.empty_cache()
+    m2["serving_fused"] = phase_end_to_end(profile, "fused", M2NET)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
@@ -1507,6 +1767,10 @@ def main():
         phase_step_agreement(trainer, "fused")
         fused_validation_launches, fused_files_launches = \
             phase_files_and_validation(trainer, "fused")
+        del trainer
+        torch.cuda.empty_cache()
+        trainer, m2["training_fused"], _ = phase_training(profile, "fused", M2NET)
+        m2["remat_fused"] = phase_remat(trainer, "fused")
         del trainer
     torch.cuda.empty_cache()
 
@@ -1529,6 +1793,9 @@ def main():
                  f"orientation; 'launches' counts the fused training run "
                  f"({TRAIN_STEPS} steps and one validation step)")
     cross = dict(G=CROSS_G, Dh=CROSS_DH, R=CROSS_R)
+    m2_per = (f"M2Net: one training step, {SCANS_PER_FORWARD} launches at "
+              f"B={TRAIN_BATCH} over its (L, K*Dh) pairs (K3/K4: (L, Dh, R) in "
+              f"each orientation), the pairs M2NetP shares from its rows")
     kernels = [
         kernel_entry("selective_scan_fwd",
                      "nnuzoo_tpu_torch/csrc/selective_scan_fwd.cu",
@@ -1542,14 +1809,24 @@ def main():
                                        "planned_dataset": planned_fwd_launches},
                      serving_forward_ms=sum(
                          weight[r["L"]] * r["ms"]
-                         for r in on_path(fwd_rows, weight, TILE_BATCH, KD=KD))),
+                         for r in on_path(fwd_rows, weight, TILE_BATCH, KD=KD)),
+                     m2net=m2net_entry(
+                         fwd_rows, m2_fwd_rows, M2NET_SCANS,
+                         lambda r: (r["L"], r["KD"]), m2_per,
+                         {"serving": m2["serving"], "training": m2["training"][0],
+                          "finetune": m2["finetune"][0], "remat": m2["remat"]})),
         kernel_entry("selective_scan_bwd",
                      "nnuzoo_tpu_torch/csrc/selective_scan_bwd.cu",
                      "nnuzoo_tpu/ops/selective_scan.py:915", bwd_launches,
                      bwd_rows, on_path(bwd_rows, weight, TRAIN_BATCH, KD=KD),
                      weight, per,
                      launches_by_path={"training": bwd_launches,
-                                       "planned_dataset": planned_bwd_launches}),
+                                       "planned_dataset": planned_bwd_launches},
+                     m2net=m2net_entry(
+                         bwd_rows, m2_bwd_rows, M2NET_SCANS,
+                         lambda r: (r["L"], r["KD"]), m2_per,
+                         {"training": m2["training"][1],
+                          "finetune": m2["finetune"][1]})),
         kernel_entry("cross_scan_fwd",
                      "nnuzoo_tpu_torch/csrc/cross_scan_fwd.cu",
                      "nnuzoo_tpu/ops/cross_scan.py:313", k3_launches,
@@ -1563,19 +1840,31 @@ def main():
                                            fused_files_launches},
                      serving_forward_ms=sum(
                          weight[r["L"]] * r["ms"] for r in
-                         on_path(cross_fwd_rows, weight, TILE_BATCH, **cross))),
+                         on_path(cross_fwd_rows, weight, TILE_BATCH, **cross)),
+                     m2net=m2net_entry(
+                         cross_fwd_rows, m2_cross_fwd_rows,
+                         M2NET_CROSS, lambda r: (r["L"], r["Dh"], r["R"]), m2_per,
+                         {"serving_fused": m2["serving_fused"],
+                          "training_fused": m2["training_fused"][0],
+                          "remat_fused": m2["remat_fused"]})),
         kernel_entry("cross_scan_bwd",
                      "nnuzoo_tpu_torch/csrc/cross_scan_bwd.cu",
                      "nnuzoo_tpu/ops/cross_scan.py:346", k4_launches,
                      cross_bwd_rows,
                      on_path(cross_bwd_rows, weight, TRAIN_BATCH, **cross),
                      weight, fused_per,
-                     launches_by_path={"training_fused": k4_launches}),
+                     launches_by_path={"training_fused": k4_launches},
+                     m2net=m2net_entry(
+                         cross_bwd_rows, m2_cross_bwd_rows,
+                         M2NET_CROSS, lambda r: (r["L"], r["Dh"], r["R"]), m2_per,
+                         {"training_fused": m2["training_fused"][1]})),
     ]
     if min(serving_launches, fwd_launches, bwd_launches, validation_launches,
            files_launches, fused_serving_launches, k3_launches, k4_launches,
            fused_validation_launches, fused_files_launches,
-           planned_fwd_launches, planned_bwd_launches) <= 0:
+           planned_fwd_launches, planned_bwd_launches, m2["serving"],
+           *m2["training"], *m2["finetune"], m2["remat"], m2["serving_fused"],
+           *m2["training_fused"], m2["remat_fused"]) <= 0:
         raise AssertionError("a kernel of the main paths was never launched")
     out(json.dumps({"kernels": kernels}))
 

@@ -1,5 +1,7 @@
 """Model registry: trainer name -> network builder (port of
-``nnuzoo_tpu/models/registry.py``, holding the names this package builds).
+``nnuzoo_tpu/models/registry.py``, holding the names this package builds:
+``nnUNetTrainerM2NetP`` (M2NetP), ``nnUNetTrainerM2Net`` and
+``nnUNetTrainerFineTuneDecoderWarmUp`` (M2Net)).
 
     builder(plans_manager, dataset_json, configuration_manager,
             num_input_channels, deep_supervision=True, device="cuda",

@@ -16,7 +16,8 @@ memory; the backward keeps each step's x_dbl in its scratch for the call.
   from only when asked); on a CPU tensor :func:`cross_scan_ref`.
 - :func:`cross_scan_bwd`: its gradients; on CUDA tensors
   ``csrc/cross_scan_bwd.cu``, on CPU tensors :func:`cross_scan_bwd_plain`.
-- :func:`cross_scan_fused`: the entry SS2D uses, differentiable.
+- :func:`cross_scan_fused`: the entry SS2D uses, differentiable; its
+  forward is the operator :func:`cross_scan_fwd_op`.
 
 The JAX kernel packs batch elements into the TPU's 128 lanes; the port has no
 such layout, and its gradient of A comes back as (G*Dh, N) directly.
@@ -291,6 +292,39 @@ def cross_scan_fwd(streams, x_proj_weight, dt_weight, dt_bias, A, Ds,
 cross_scan_fwd.launches = 0
 
 
+# the forward of the differentiable cross-scan as an operator of its own,
+# kept by a selective checkpoint as the selective scan's is
+# (``selective_scan.scan_core_fwd_op``)
+@torch.library.custom_op(f"{__name__.replace('.', '_')}::cross_scan_fwd",
+                         mutates_args=())
+def cross_scan_fwd_op(streams: list[torch.Tensor], x_proj_weight: torch.Tensor,
+                      dt_weight: torch.Tensor, dt_bias: torch.Tensor,
+                      A: torch.Tensor, Ds: torch.Tensor, reverse: bool,
+                      carries: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, carries) of :func:`cross_scan_fwd` with ``return_carries=carries``
+    on CUDA tensors (an empty tensor where the kernel writes none); on CPU
+    tensors y of :func:`cross_scan_ref` and an empty tensor."""
+    weights = (x_proj_weight, dt_weight, dt_bias, A, Ds)
+    if streams[0].device.type == "cuda":
+        y, states = _cross_scan_fwd_cuda(streams, *weights, reverse,
+                                         carries=carries)
+        return y, states if states is not None else y.new_empty(0)
+    y = cross_scan_ref(streams, *weights, reverse)
+    return y, y.new_empty(0)
+
+
+@cross_scan_fwd_op.register_fake
+def _(streams, x_proj_weight, dt_weight, dt_bias, A, Ds, reverse, carries):
+    """The outputs' shapes, for tensors without data (the meta device)."""
+    batch, L, Dh = streams[0].shape
+    GD = len(streams) * Dh
+    y = streams[0].new_empty(batch, L, GD)
+    nchunks = math.ceil(L / _pick_chunk(batch, L, GD))
+    if not (carries and streams[0].device.type == "cuda" and nchunks > 1):
+        return y, y.new_empty(0)
+    return y, y.new_empty(batch, nchunks, KERNEL_STATE_SIZE, GD)
+
+
 @functools.lru_cache(maxsize=64)
 def _partial_pieces(G, Dh, R, N=KERNEL_STATE_SIZE):
     """The five weight gradients in a row of the backward kernel's partials,
@@ -422,16 +456,14 @@ class _CrossScan(torch.autograd.Function):
     def forward(ctx, reverse, grad_enabled, x_proj_weight, dt_weight, dt_bias, A,
                 Ds, *streams):
         weights = (x_proj_weight, dt_weight, dt_bias, A, Ds)
-        if streams[0].device.type == "cuda":
-            # the carries only where a backward can follow (``grad_enabled``
-            # is the caller's grad mode: inside forward it is always off)
-            y, carries = _cross_scan_fwd_cuda(
-                streams, *weights, reverse,
-                carries=grad_enabled and any(ctx.needs_input_grad[2:]))
-        else:
-            y, carries = cross_scan_ref(streams, *weights, reverse), None
+        # the carries only where a backward can follow (``grad_enabled`` is
+        # the caller's grad mode: inside forward it is always off)
+        y, carries = cross_scan_fwd_op(
+            list(streams), *weights, reverse,
+            grad_enabled and any(ctx.needs_input_grad[2:]))
         ctx.reverse = reverse
-        ctx.save_for_backward(*weights, carries, *streams)
+        ctx.save_for_backward(*weights, carries if carries.numel() else None,
+                              *streams)
         return y
 
     @staticmethod

@@ -16,7 +16,8 @@ Semantics follow the reference recurrence:
   ``csrc/selective_scan_bwd.cu``; on CPU tensors it runs
   :func:`scan_core_bwd_plain`.
 - :func:`scan_core_grad`: the two as one differentiable function (the
-  counterpart of the JAX package's ``_scan_core_pallas`` and its ``defvjp``).
+  counterpart of the JAX package's ``_scan_core_pallas`` and its ``defvjp``),
+  whose forward is the operator :func:`scan_core_fwd_op`.
 - :func:`selective_scan_blkd`: the entry SS2D uses, with the shapes of the
   JAX package's function of the same name.
 """
@@ -426,6 +427,35 @@ def scan_core(u, delta, A_t, bc, return_carries: bool = False):
 scan_core.launches = 0
 
 
+# the forward of the differentiable scan as an operator of its own, so that a
+# selective checkpoint (``torch.utils.checkpoint`` with
+# ``create_selective_checkpoint_contexts``) can keep its outputs instead of
+# running it again; its name space is this module's import name, which keeps
+# a second copy of the package imported under another name apart
+@torch.library.custom_op(f"{__name__.replace('.', '_')}::scan_core_fwd",
+                         mutates_args=())
+def scan_core_fwd_op(u: torch.Tensor, delta: torch.Tensor, A_t: torch.Tensor,
+                     bc: torch.Tensor, carries: bool) -> tuple[torch.Tensor,
+                                                               torch.Tensor]:
+    """(y, carries) of :func:`scan_core` with ``return_carries=carries`` on a
+    CUDA tensor (an empty tensor where the kernel writes none); on a CPU
+    tensor y of :func:`scan_core_plain` and an empty tensor."""
+    if u.device.type == "cuda":
+        y, states = _scan_core_cuda(u, delta, A_t, bc, carries=carries)
+        return y, states if states is not None else u.new_empty(0)
+    return scan_core_plain(u, delta, A_t, bc), u.new_empty(0)
+
+
+@scan_core_fwd_op.register_fake
+def _(u, delta, A_t, bc, carries):
+    """The outputs' shapes, for tensors without data (the meta device)."""
+    if not (carries and u.device.type == "cuda"):
+        return torch.empty_like(u), u.new_empty(0)
+    batch, L, KD = u.shape
+    nchunks = math.ceil(L / _pick_chunk(batch, L, KD))
+    return torch.empty_like(u), u.new_empty(batch, nchunks, A_t.shape[0], KD)
+
+
 def _bwd_scratch_layout(batch, nchunks, nsub, N, KD):
     """The backward kernel's scratch as one float32 allocation: ({name:
     (offset, shape)}, total floats). ``da_part`` (dA per batch and chunk)
@@ -512,15 +542,12 @@ class _ScanCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, u, delta, A_t, bc, grad_enabled):
-        if u.device.type == "cuda":
-            # the carries only where a backward can follow (``grad_enabled``
-            # is the caller's grad mode: inside forward it is always off)
-            y, carries = _scan_core_cuda(
-                u, delta, A_t, bc,
-                carries=grad_enabled and any(ctx.needs_input_grad[:4]))
-        else:
-            y, carries = scan_core_plain(u, delta, A_t, bc), None
-        ctx.save_for_backward(u, delta, A_t, bc, carries)
+        # the carries only where a backward can follow (``grad_enabled`` is
+        # the caller's grad mode: inside forward it is always off)
+        y, carries = scan_core_fwd_op(
+            u, delta, A_t, bc, grad_enabled and any(ctx.needs_input_grad[:4]))
+        ctx.save_for_backward(u, delta, A_t, bc,
+                              carries if carries.numel() else None)
         return y
 
     @staticmethod

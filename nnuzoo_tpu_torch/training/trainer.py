@@ -17,14 +17,20 @@ The final validation (``perform_actual_validation``) predicts the fold's
 validation cases with the port's ``Predictor``, writes them through the plans'
 writer and scores them against ``gt_segmentations``.
 
+The fine-tuning trainer (``freeze_encoder_epochs``) freezes the encoder as
+the JAX package does: while frozen, the encoder's gradients are zero before
+the clip, the optimizer steps on every parameter (so the frozen ones' moments
+decay and their step counts advance, as optax's shared count does), and the
+frozen parameters are then put back as they were.
+
 Not ported yet, each raising ``NotImplementedError``: SSL and translation
-targets, the encoder freeze of the fine-tuning trainer, device meshes and
-multi-process batches, bf16, and cascaded configurations (with a previous
-or a next stage). ``load_checkpoint`` also continues a fold that the JAX
-package trained with AdamW.
+targets, device meshes and multi-process batches, bf16, and cascaded
+configurations (with a previous or a next stage). ``load_checkpoint`` also
+continues a fold that the JAX package trained with AdamW.
 """
 
 import os
+import re
 import time
 from dataclasses import asdict, replace
 from datetime import datetime
@@ -133,10 +139,6 @@ class Trainer:
             raise NotImplementedError(
                 f"target_type {self.target_type!r}: SSL and translation targets "
                 "are not in nnuzoo_tpu_torch yet")
-        if cfg.freeze_encoder_epochs or cfg.scheduler == "finetune_warmup":
-            raise NotImplementedError(
-                "the encoder freeze of the fine-tuning trainer is not in "
-                "nnuzoo_tpu_torch yet")
         if int(os.environ.get("NNUZOO_MODEL_PARALLEL", cfg.model_parallel)) > 1:
             raise NotImplementedError(
                 "device meshes are not in nnuzoo_tpu_torch yet: it trains on one "
@@ -325,6 +327,9 @@ class Trainer:
                              device=self.device, seed=self.seed)
         self.train_aug_cfg, self.val_aug_cfg = self._make_augment_config()
         self.optimizer = self._build_optimizer()
+        frozen = set(self._encoder_freeze_mask(self.model)) \
+            if self.config.freeze_encoder_epochs else set()
+        self._frozen = [p for n, p in self.model.named_parameters() if n in frozen]
         self.step = 0
         self.global_batch_size = self.local_batch_size = \
             self.configuration_manager.batch_size
@@ -367,15 +372,41 @@ class Trainer:
         loss.backward()
         return loss.detach()
 
+    @staticmethod
+    def _encoder_freeze_mask(model: torch.nn.Module) -> List[str]:
+        """The names of the parameters that the fine-tuning trainer freezes:
+        those with any name component ``stage1``..``stage6`` or
+        ``patch_merging1``..``patch_merging4``, as the JAX package's mask
+        has it (it also takes the VSS layers of every MU's decoder, which
+        are named ``stage1``..; the original freezes only the top-level
+        stages)."""
+        pattern = re.compile(r"^(stage[1-6]|patch_merging[1-4])$")
+        return [name for name, _ in model.named_parameters()
+                if any(pattern.match(part) for part in name.split("."))]
+
     def apply_gradients(self) -> None:
         """Clip the gradients by their global norm, set this step's learning
-        rate and update."""
+        rate and update. While the encoder is frozen (the first
+        ``freeze_encoder_epochs`` epochs), its gradients are zero before the
+        clip, the optimizer steps on every parameter, and the frozen
+        parameters are put back as they were, weight decay undone."""
+        frozen = self._frozen if self.step < (self.config.freeze_encoder_epochs *
+                                              self.config.num_iterations_per_epoch) \
+            else []
+        for p in frozen:
+            # a zero gradient, not None: torch's AdamW would skip the
+            # parameter, and its step count would fall behind optax's
+            p.grad = torch.zeros_like(p) if p.grad is None else p.grad.zero_()
+        kept = [p.detach().clone() for p in frozen]
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         clip_by_global_norm_(grads, self.config.grad_clip_norm)
         lr = self._step_schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
+        if frozen:
+            with torch.no_grad():
+                torch._foreach_copy_(frozen, kept)
         self.step += 1
 
     def train_step(self, data: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:

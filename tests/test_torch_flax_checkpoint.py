@@ -198,7 +198,7 @@ def test_a_jax_checkpoint_folder_predicts_the_same_in_the_port(jax_model_folder,
     folder, params = jax_model_folder
     monkeypatch.setitem(registry.MODEL_BUILDERS, NAME,
                         lambda *a, **k: tm2net.get_m2net_from_plans(
-                            *a, **k, stage_layers=STAGES))
+                            *a, **k, small=True, stage_layers=STAGES))
     tp = Predictor(use_mirroring=False, tile_batch_size=3, device="cpu")
     tp.initialize_from_trained_model_folder(folder)
     assert tp.trainer_name == NAME and len(tp.list_of_parameters) == 2

@@ -60,7 +60,8 @@ def folders(tmp_path_factory):
     mp.setenv("nnUNet_preprocessed", str(root / "pp"))
     mp.setenv("nnUNet_results", str(root / "res"))
     mp.setitem(registry.MODEL_BUILDERS, "nnUNetTrainerM2NetP",
-               functools.partial(tm2net.get_m2net_from_plans, stage_layers=LAYERS))
+               functools.partial(tm2net.get_m2net_from_plans, small=True,
+                                 stage_layers=LAYERS))
     yield root
     mp.undo()
 

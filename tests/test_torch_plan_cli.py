@@ -94,7 +94,8 @@ def planned(tmp_path_factory):
     plans["configurations"]["2d"]["batch_size"] = 2
     save_json(plans, plans_file, sort_keys=False)
     mp.setitem(registry.MODEL_BUILDERS, NAME,
-               functools.partial(tm2net.get_m2net_from_plans, stage_layers=(1, 1, 1, 1)))
+               functools.partial(tm2net.get_m2net_from_plans, small=True,
+                                 stage_layers=(1, 1, 1, 1)))
     short = functools.partial(replace, num_iterations_per_epoch=1,
                               num_val_iterations_per_epoch=1)
     get_config = ttrainer.get_trainer_config

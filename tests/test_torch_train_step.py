@@ -68,7 +68,7 @@ def trainer(tmp_path, monkeypatch):
     monkeypatch.setenv("nnUNet_results", str(tmp_path / "res"))
     monkeypatch.setitem(registry.MODEL_BUILDERS, "nnUNetTrainerM2NetP",
                         functools.partial(tm2net.get_m2net_from_plans,
-                                          stage_layers=LAYERS))
+                                          small=True, stage_layers=LAYERS))
     plans, dataset_json = _plans()
     t = Trainer(plans, "2d", "all", dataset_json, device="cpu", seed=0,
                 trainer_name="nnUNetTrainerM2NetP")

@@ -51,7 +51,7 @@ def dataset(tmp_path, monkeypatch):
     preprocess([999], configurations=("2d",), num_processes=(1,))
     monkeypatch.setitem(registry.MODEL_BUILDERS, NAME,
                         functools.partial(tm2net.get_m2net_from_plans,
-                                          stage_layers=(1, 1, 1, 1)))
+                                          small=True, stage_layers=(1, 1, 1, 1)))
     return pp
 
 
@@ -162,8 +162,9 @@ def test_run_training_entry_point_and_the_parts_that_wait(dataset, monkeypatch):
     make = functools.partial(Trainer, plans, "2d", 0, device="cpu")
     with pytest.raises(NotImplementedError, match="target_type"):
         make(dict(dataset_json, target_type="ssl"), trainer_name=NAME)
-    with pytest.raises(NotImplementedError, match="encoder freeze"):
-        make(dataset_json, trainer_name="nnUNetTrainerFineTuneDecoderWarmUp")
+    # the fine-tuning trainer's encoder freeze is ported (test_torch_finetune.py)
+    finetune = make(dataset_json, trainer_name="nnUNetTrainerFineTuneDecoderWarmUp")
+    assert finetune.config.freeze_encoder_epochs == 50
     monkeypatch.setenv("NNUZOO_BF16", "1")
     with pytest.raises(NotImplementedError, match="bf16"):
         make(dataset_json, trainer_name=NAME)

@@ -68,7 +68,8 @@ def dataset(tmp_path_factory):
     save_json(plans, plans_file, sort_keys=False)
     preprocess([999], configurations=("2d",), num_processes=(1,))
     mp.setitem(registry.MODEL_BUILDERS, NAME,
-               functools.partial(tm2net.get_m2net_from_plans, stage_layers=STAGES))
+               functools.partial(tm2net.get_m2net_from_plans, small=True,
+                                 stage_layers=STAGES))
     short = functools.partial(replace, num_iterations_per_epoch=1,
                               num_val_iterations_per_epoch=1)
     get_config = ttrainer.get_trainer_config
