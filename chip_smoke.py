@@ -86,15 +86,42 @@ Phases, one line each (a failure anywhere exits non-zero):
  18. one M2Net step at batch 12 with ``remat`` off, off again and on, each
      glue: the forward kernel's launches with remat on the remat-off count,
      the peak memory of each, the gradients held to the remat-off step's;
- 19. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
-     on every path, M2Net's under the key ``m2net``;
- 20. last line ``{"ok": true, "device": {...}}``.
+ 19. the nnU-Net CNN baselines on phase 14's raw dataset at 3d, after it:
+     the command line's ``plan_and_preprocess -c 3d_fullres`` with the
+     default planner and with ``-pl ResEncUNetPlanner``, ``train <id>
+     3d_fullres 0`` with the default trainer (``nnUNetTrainer``,
+     PlainConvUNet, SGD) and with ``-tr nnUNetTrainerResEncUNet -p
+     nnUNetResEncUNetPlans`` (ResidualEncoderUNet), each cut to one epoch of
+     4 steps and one validation step, with the final validation, then
+     ``predict_from_modelfolder`` and ``evaluate_simple`` on the test
+     cases; seconds per step and Dice;
+ 20. ``nnUNetTrainer`` at 3d_fullres at full width
+     (benchmarks/zoo_sweep.py's plan: patch 48x192x192, 6 stages of 32-320
+     features, 30.7M parameters), serving: ``predict_single_npy_array`` on
+     a seeded 1x64x256x256 volume (8 tiles, mirror TTA over 3 axes, tile
+     batch 2), seconds per volume, one tile batch's logits against the
+     model in fp64 by phase 4's limits;
+ 21. the same model training: ``run_training`` on three seeded preprocessed
+     1x80x256x256 cases (4 steps at batch 2, SGD and poly, one validation
+     step), its final validation, one step's loss and gradient against fp64
+     (CNN_STEP_LIMITS), and one profiled step for the device's busy share;
+ 22. ``nnUNetTrainer`` at 2d at full width (benchmarks/bench_inference.py's
+     PlainConvUNet, 256x224): phase 4's serving and tile check, 4 training
+     steps at batch 12 on phase 5's dataset;
+ 23. ``nnUNetTrainerU2NetP`` and ``nnUNetTrainerU2Net`` at 256x224: phase
+     22 again for each;
+     phases 19-23 print seconds, peak memory and the launches of K1-K4,
+     which must be none;
+ 24. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
+     on every path, M2Net's under the key ``m2net``, and on each CNN path
+     (none) under ``launches_on_cnn_paths``;
+ 25. last line ``{"ok": true, "device": {...}}``.
 Every line is also written to ``chiprun_out/chip_smoke.jsonl``.
 ``--profile`` adds torch.profiler tables of one tile batch and of one
 training step under ``chiprun_out/``, for each glue. fp32 throughout (but
-for the fp64 references of phases 4, 6, 11, 12, 15 and 16), TF32 off for
-matmuls and convolutions. Phase 14 runs the port's own planning and
-preprocessing on the host (numpy and scipy, 4 threads).
+for the fp64 references of phases 4, 6, 11, 12, 15, 16 and 20-23), TF32
+off for matmuls and convolutions. Phases 14 and 19 run the port's own
+planning and preprocessing on the host (numpy and scipy, 4 threads).
 """
 
 import contextlib
@@ -814,13 +841,15 @@ def blob_labels(rs, shape, block):
     return np.digitize(field, [0.6, 0.85]).astype(np.int16)
 
 
-def write_dataset(folder, cases=3, shape=(8, 280, 320), seed=0):
-    """A seeded preprocessed 2d dataset in the format ``DatasetNumpy`` reads:
+def write_dataset(folder, cases=3, shape=(8, 280, 320), seed=0,
+                  spacing=(3.0, 1.0, 1.0), block=40):
+    """A seeded preprocessed dataset in the format ``DatasetNumpy`` reads:
     per case ``.npz`` {data (1, z, y, x) float32, seg (1, z, y, x) int16 with
     labels 0..2} and ``.pkl`` properties with ``class_locations`` and the
     geometry that export needs (nothing cropped, nothing resampled), and the
     segmentation in ``../gt_segmentations`` as the final validation reads it.
-    The labels are smooth blobs that the intensities follow, so there is
+    The labels are smooth blobs (constant over ``block`` x ``block`` squares,
+    which must tile y and x) that the intensities follow, so there is
     something to learn."""
     import numpy as np
     from nnuzoo_tpu_torch.imageio.nifti import NiftiIO
@@ -829,7 +858,7 @@ def write_dataset(folder, cases=3, shape=(8, 280, 320), seed=0):
     os.makedirs(gt)
     rs = np.random.RandomState(seed)
     for i in range(cases):
-        seg = blob_labels(rs, shape, 40)[None]
+        seg = blob_labels(rs, shape, block)[None]
         data = (seg + 0.5 * rs.randn(1, *shape)).astype(np.float32)
         locations = {}
         for label in (1, 2):
@@ -838,7 +867,7 @@ def write_dataset(folder, cases=3, shape=(8, 280, 320), seed=0):
                                                replace=False)]
         np.savez_compressed(os.path.join(folder, f"case_{i:03d}.npz"),
                             data=data, seg=seg)
-        props = {"class_locations": locations, "spacing": [3.0, 1.0, 1.0],
+        props = {"class_locations": locations, "spacing": list(spacing),
                  "shape_before_cropping": shape,
                  "bbox_used_for_cropping": [[0, s] for s in shape],
                  "shape_after_cropping_and_before_resampling": shape}
@@ -1660,6 +1689,490 @@ def phase_planned_dataset(card):
     return launches
 
 
+# ----------------------------------------------------------------- CNN baselines
+# The nnU-Net CNN baselines: PlainConvUNet and ResidualEncoderUNet from the
+# plans (nnUNetTrainer, nnUNetTrainerResEncUNet) and U2Net / U2NetP. Their
+# convolutions run through cuDNN and their paths launch none of K1-K4.
+CNN = "nnUNetTrainer"
+RESENC = "nnUNetTrainerResEncUNet"
+U2NETS = ("nnUNetTrainerU2NetP", "nnUNetTrainerU2Net")
+# benchmarks/zoo_sweep.py's 3d_fullres plan (``build_plans`` with a 3-d patch;
+# copied, that file imports the JAX package): a planner-derived AbdomenCT
+# 3d_fullres, 6 stages to 320 features, anisotropic first and last strides
+CNN_3D_PATCH = (48, 192, 192)
+CNN_3D_BATCH = 2
+CNN_3D_SPACING = (2.5, 0.8, 0.8)
+CNN_3D_ARCH = {
+    "n_stages": 6,
+    "features_per_stage": [32, 64, 128, 256, 320, 320],
+    "kernel_sizes": [[1, 3, 3]] + [[3, 3, 3]] * 5,
+    "strides": [[1, 1, 1], [1, 2, 2]] + [[2, 2, 2]] * 3 + [[1, 2, 2]],
+    "n_conv_per_stage": [2] * 6,
+    "n_conv_per_stage_decoder": [2] * 5,
+}
+# benchmarks/bench_inference.py's 2d PlainConvUNet (copied likewise)
+CNN_2D_ARCH = {
+    "n_stages": 5,
+    "features_per_stage": [32, 64, 128, 256, 512],
+    "kernel_sizes": [[3, 3]] * 5,
+    "strides": [[1, 1]] + [[2, 2]] * 4,
+    "n_conv_per_stage": [2] * 5,
+    "n_conv_per_stage_decoder": [2] * 4,
+}
+CNN_3D_TILE_BATCH = 2
+CNN_3D_VOLUME = (1, 64, 256, 256)   # (c, z, y, x): 2x2x2 tiles of the patch
+CNN_3D_CASE = (80, 256, 256)        # (z, y, x) of a preprocessed training case
+# one 3d training step of PlainConvUNet (random weights from STEP_SEED, GroupNorm
+# after every conv) against the same step in fp64: |loss - fp64| / |fp64| and
+# the gradient's error norm over the fp64 gradient's norm
+CNN_STEP_LIMITS = {"loss_rel_err": 1e-5, "grad_rel_err_norm": 1e-3}
+
+
+def scan_kernels():
+    """The wrappers of K1-K4, each counting its launches."""
+    from nnuzoo_tpu_torch.ops.cross_scan import cross_scan_bwd, cross_scan_fwd
+    from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
+    return scan_core, scan_core_bwd, cross_scan_fwd, cross_scan_bwd
+
+
+def reset_scan_launches():
+    for k in scan_kernels():
+        k.launches = 0
+
+
+def scan_launches():
+    return sum(k.launches for k in scan_kernels())
+
+
+def model_flop(model, batch_shape, backward):
+    """Operations of one forward (and with ``backward`` the backward too) of
+    ``model`` on a channels-last input of ``batch_shape``, as
+    ``torch.utils.flop_counter`` counts them on a copy on the meta device
+    (a convolution's multiply-adds count twice)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    meta = copy.deepcopy(model).to("meta")
+    x = torch.empty(batch_shape, device="meta")
+    with FlopCounterMode(display=False) as counter:
+        if backward:
+            sum(o.sum() for o in meta(x)).backward()
+        else:
+            with torch.no_grad():
+                meta(x)
+    return counter.get_total_flops()
+
+
+def cnn_plans(dim):
+    """Phase 4's 2d plans with bench_inference's PlainConvUNet, or
+    zoo_sweep's 3d_fullres plan with phase 4's resampling settings (a
+    dataset of its own): (plans, dataset.json, configuration name)."""
+    plans, dataset_json = plans_and_dataset()
+    config = plans["configurations"]["2d"]
+    if dim == 2:
+        config["architecture"] = {"network_class_name": "PlainConvUNet",
+                                  "arch_kwargs": CNN_2D_ARCH}
+        return plans, dataset_json, "2d"
+    plans["dataset_name"] = "Dataset998_Sweep3d"
+    plans["configurations"] = {"3d_fullres": dict(
+        config, data_identifier="nnUNetPlans_3d_fullres", batch_size=CNN_3D_BATCH,
+        patch_size=list(CNN_3D_PATCH), spacing=list(CNN_3D_SPACING),
+        architecture={"network_class_name": "PlainConvUNet",
+                      "arch_kwargs": CNN_3D_ARCH})}
+    return plans, dataset_json, "3d_fullres"
+
+
+def phase_cnn_serving(trainer_name, dim):
+    """Serving a CNN baseline at full width through
+    ``Predictor.predict_single_npy_array``: at 3d zoo_sweep's plan on a
+    seeded 1x64x256x256 volume (8 tiles, tile batch 2, mirror TTA over 3
+    axes), at 2d phase 4's volume and settings. Seconds per volume, peak
+    memory and K1-K4 launches (none); one tile batch's logits, fp32 against
+    the same model in fp64, by phase 4's limits. Returns the launches."""
+    import numpy as np
+    import torch
+    from nnuzoo_tpu_torch.inference.predictor import Predictor
+    from nnuzoo_tpu_torch.inference.sliding_window import (
+        get_sliding_window_slicers, pad_nd_image)
+    from nnuzoo_tpu_torch.models.registry import get_model_builder
+    from nnuzoo_tpu_torch.plans.plans_handler import PlansManager
+    from nnuzoo_tpu_torch.preprocessing.preprocessor import DefaultPreprocessor
+
+    plans, dataset_json, name = cnn_plans(dim)
+    pm = PlansManager(plans)
+    cfg = pm.get_configuration(name)
+    patch = tuple(cfg.patch_size)
+    t0 = time.perf_counter()
+    model = get_model_builder(trainer_name)(pm, dataset_json, cfg, 1,
+                                            deep_supervision=False, device="cuda",
+                                            seed=0)
+    build_s = time.perf_counter() - t0
+    tile_batch = CNN_3D_TILE_BATCH if dim == 3 else TILE_BATCH
+    axes = (0, 1, 2) if dim == 3 else (0, 1)
+    predictor = Predictor(tile_step_size=0.5, use_gaussian=True, use_mirroring=True,
+                          tile_batch_size=tile_batch, device="cuda")
+    predictor.manual_initialization(model, [model.state_dict()], pm, cfg,
+                                    dataset_json, trainer_name, axes)
+    rng = np.random.RandomState(0)
+    if dim == 3:
+        volume = (100 * rng.rand(*CNN_3D_VOLUME)).astype(np.float32)
+        props = {"spacing": list(CNN_3D_SPACING)}
+    else:
+        volume = (100 * rng.rand(1, 4, 224, 256)).astype(np.float32)
+        props = {"spacing": [3.0, 1.0, 1.0]}
+
+    predictor.predict_single_npy_array(volume, dict(props))      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_scan_launches()
+    predictor.forward_count = 0
+    t0 = time.perf_counter()
+    seg = predictor.predict_single_npy_array(volume, dict(props))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, forwards = scan_launches(), predictor.forward_count
+    labels = sorted(int(v) for v in np.unique(seg))
+    tile_flop = model_flop(model, (1, *patch, 1), backward=False)
+    emit("cnn_serving", trainer=trainer_name, model=type(model).__name__, dim=dim,
+         parameters=sum(p.numel() for p in model.parameters()), patch=list(patch),
+         model_build_s=build_s, seconds_per_volume=seconds,
+         tile_tflop=tile_flop / 1e12,
+         tflop_per_s=tile_flop * forwards * tile_batch / seconds / 1e12,
+         volume=list(volume.shape),
+         segmentation_shape=list(seg.shape), labels=labels, tile_batch=tile_batch,
+         forwards=forwards, scan_launches=launches,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if seg.shape != volume.shape[1:] or not set(labels) <= {0, 1, 2} or \
+            forwards == 0 or launches:
+        raise AssertionError(f"{trainer_name} serving: segmentation {seg.shape} "
+                             f"labels {labels}, {forwards} forwards, {launches} "
+                             f"scan launches")
+
+    # the first tile batch of the volume, fp32 against the model in fp64
+    data, _ = DefaultPreprocessor().run_case_npy(
+        volume, None, dict(props), pm, cfg, dataset_json)
+    padded, _ = pad_nd_image(data, patch)
+    slicers = get_sliding_window_slicers(padded.shape[1:], patch, 0.5)[:tile_batch]
+    tiles = torch.stack([torch.from_numpy(np.ascontiguousarray(padded[sl]))
+                         for sl in slicers]).cuda().movedim(1, -1).contiguous()
+    got = predictor.tile_forward(tiles)
+    model64 = copy.deepcopy(model).double()
+    reference = Predictor(use_mirroring=True, tile_batch_size=tile_batch,
+                          device="cuda")
+    reference.manual_initialization(model64, [model64.state_dict()], pm, cfg,
+                                    dataset_json, trainer_name, axes)
+    want = reference.tile_forward(tiles.double())
+    del reference, model64
+    c = compare(got, want)
+    c["argmax_agreement"] = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    emit("cnn_tile_logits", trainer=trainer_name, dim=dim, tiles=len(slicers),
+         fp32_vs_fp64=c)
+    if not (c["max_abs"] <= TILE_MAX_TOL * c["range_ref"]
+            and c["mean_abs"] <= TILE_MEAN_TOL * c["range_ref"]
+            and c["argmax_agreement"] >= AGREE_MIN):
+        raise AssertionError(f"{trainer_name} tile logits against fp64: {c}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_cnn_training(trainer_name, dim):
+    """``Trainer.run_training()`` of a CNN baseline for one epoch of
+    TRAIN_STEPS steps and one validation step (SGD and poly for the
+    PlainConvUNet), at 3d on three seeded preprocessed 1x80x256x256 cases at
+    zoo_sweep's spacing (written unless there), at 2d on phase 5's dataset.
+    Seconds per step, peak memory, K1-K4 launches (none). Returns the
+    trainer, the launches and the last batch."""
+    import numpy as np
+    import torch
+    from nnuzoo_tpu_torch.training.trainer import Trainer
+
+    plans, dataset_json, name = cnn_plans(dim)
+    folder = os.path.join(os.environ["nnUNet_preprocessed"], plans["dataset_name"],
+                          plans["configurations"][name]["data_identifier"])
+    if not os.path.isdir(folder):
+        if dim == 3:
+            write_dataset(folder, shape=CNN_3D_CASE, spacing=CNN_3D_SPACING,
+                          block=32)
+        else:
+            write_dataset(folder)
+    trainer = Trainer(plans, name, "all", dataset_json, num_epochs=1,
+                      trainer_name=trainer_name, device="cuda", seed=0)
+    trainer.config = replace(trainer.config, num_iterations_per_epoch=TRAIN_STEPS,
+                             num_val_iterations_per_epoch=1)
+    trainer.initialize()
+    steps, batches = [], []
+    inner = trainer.train_step
+
+    def observed_step(data, seg):
+        batches.append((data, seg))
+        torch.cuda.synchronize()
+        before = scan_launches()
+        t0 = time.perf_counter()
+        loss = inner(data, seg)
+        torch.cuda.synchronize()
+        steps.append(dict(seconds=time.perf_counter() - t0, loss=loss.item(),
+                          scan_launches=scan_launches() - before))
+        return loss
+
+    trainer.train_step = observed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_scan_launches()
+    t0 = time.perf_counter()
+    trainer.run_training()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    trainer.train_step = inner
+    launches = scan_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [s["loss"] for s in steps]
+    log = trainer.logger.my_fantastic_logging
+    step_s = float(np.mean([s["seconds"] for s in steps[1:]]))
+    step_flop = model_flop(trainer.model, (batches[0][0].shape[0],
+                                           *trainer.configuration_manager.patch_size,
+                                           1), backward=True)
+    readings = dict(
+        trainer=trainer_name, model=type(trainer.model).__name__, dim=dim,
+        parameters=sum(p.numel() for p in trainer.model.parameters()),
+        optimizer=type(trainer.optimizer).__name__, steps=steps, losses=losses,
+        seconds_per_step_after_first=step_s, step_tflop=step_flop / 1e12,
+        tflop_per_s=step_flop / step_s / 1e12,
+        run_training_seconds=seconds, val_loss=log["val_losses"][0],
+        pseudo_dice=log["dice_per_class_or_region"][0], scan_launches=launches,
+        peak_memory_bytes=peak, batch=list(batches[0][0].shape),
+        initial_patch=list(trainer.train_aug_cfg.initial_patch_size),
+        do_dummy_2d=trainer.train_aug_cfg.do_dummy_2d,
+        ds_scales=[list(s) for s in trainer.train_aug_cfg.deep_supervision_scales])
+    emit("cnn_training", **readings)
+    if len(steps) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
+            not np.isfinite(log["val_losses"][0]) or launches:
+        raise AssertionError(f"{trainer_name} training: losses {losses}, val "
+                             f"{log['val_losses']}, {launches} scan launches")
+    if tuple(batches[0][0].shape[:2]) != (trainer.configuration_manager.batch_size, 1):
+        raise AssertionError(f"batch shape {batches[0][0].shape}")
+    for f in ("checkpoint_final.pth", "checkpoint_best.pth"):
+        if not os.path.isfile(os.path.join(trainer.output_folder, f)):
+            raise AssertionError(f"{f} was not written")
+    return trainer, launches, batches[-1]
+
+
+def profile_cnn_step(trainer, data, seg):
+    """Device time of one training step under torch.profiler, against the
+    wall time of two unprofiled steps: the share of the step the device is
+    busy (the steps move the trainer's weights: run it after the fold's
+    validation). The table goes to chiprun_out/profile_cnn_step_<dim>d.txt."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        trainer.train_step(data, seg)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 2 * 1e3
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(data, seg)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    table = (f"chiprun_out/profile_cnn_step_"
+             f"{len(trainer.configuration_manager.patch_size)}d.txt")
+    (ROOT / table).write_text(
+        events.table(sort_by="self_cuda_time_total", row_limit=40))
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(step_wall_ms=wall_ms, device_ms=total,
+                device_busy_share=total / wall_ms,
+                launches=sum(e.count for e in kernels), table=table,
+                top_kernels_ms=[[e.key[:80], e.self_device_time_total / 1e3]
+                                for e in top])
+
+
+def phase_cnn_step_agreement(trainer):
+    """One 3d training step of the trainer's PlainConvUNet, with weights
+    drawn from STEP_SEED, on the batch of STEP_SEED's sampler (the plan's
+    batch, augmented once with a fixed seed): the loss and every gradient in
+    fp32 against the same step in fp64 on the card, held to
+    CNN_STEP_LIMITS."""
+    import torch
+    from nnuzoo_tpu_torch.models.registry import get_model_builder
+    model = get_model_builder(trainer.trainer_name)(
+        trainer.plans_manager, trainer.dataset_json, trainer.configuration_manager,
+        trainer.num_input_channels, True, device="cuda", seed=STEP_SEED)
+    data_aug, targets = augmented(trainer, *seeded_batch(
+        trainer, batch_size=trainer.configuration_manager.batch_size))
+
+    def loss_and_grads(net, dtype):
+        net.train()
+        outputs = net(data_aug.to(dtype).movedim(1, -1).contiguous())
+        loss = trainer._compute_loss(outputs, targets)
+        params = list(net.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        torch.cuda.synchronize()
+        # the deepest head's weight in the loss is 0: no gradient reaches it
+        return loss.item(), [torch.zeros_like(p, dtype=torch.float64) if g is None
+                             else g.double() for p, g in zip(params, grads)]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(model, torch.float32)
+    fp32_s = time.perf_counter() - t0
+    model64 = copy.deepcopy(model).double()
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want_loss, want = loss_and_grads(model64, torch.float64)
+    fp64_s = time.perf_counter() - t0
+    del model64
+    torch.cuda.empty_cache()
+    norm = torch.sqrt(sum((w ** 2).sum() for w in want)).item()
+    err = torch.sqrt(sum(((g - w) ** 2).sum() for g, w in zip(grads, want))).item()
+    readings = dict(loss=loss, fp64_loss=want_loss,
+                    loss_rel_err=abs(loss - want_loss) / abs(want_loss),
+                    grad_norm_fp64=norm, grad_err_norm=err,
+                    grad_rel_err_norm=err / norm,
+                    finite=all(bool(torch.isfinite(g).all()) for g in grads))
+    emit("cnn_step_agreement", trainer=trainer.trainer_name,
+         batch=list(data_aug.shape), seed=STEP_SEED, fp32_s=fp32_s, fp64_s=fp64_s,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         limits=CNN_STEP_LIMITS, **readings)
+    if not (readings["finite"] and all(readings[k] <= v
+                                       for k, v in CNN_STEP_LIMITS.items())):
+        raise AssertionError(f"{trainer.trainer_name} step against fp64: "
+                             f"{readings} against {CNN_STEP_LIMITS}")
+
+
+def phase_cnn_validation(trainer):
+    """The final validation of a CNN fold (``perform_actual_validation``:
+    every case of the fold through the sliding window, written and scored
+    against ``gt_segmentations``): seconds per case, Dice, launches."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_scan_launches()
+    t0 = time.perf_counter()
+    metrics = trainer.perform_actual_validation()
+    torch.cuda.synchronize()
+    seconds, launches = time.perf_counter() - t0, scan_launches()
+    dice = metrics["foreground_mean"]["Dice"]
+    emit("cnn_validation", trainer=trainer.trainer_name,
+         dim=len(trainer.configuration_manager.patch_size),
+         cases=len(trainer.validation_case_times), seconds=seconds,
+         seconds_per_case=trainer.validation_case_times, foreground_dice=dice,
+         scan_launches=launches, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if not np.isfinite(dice) or launches or not trainer.validation_case_times:
+        raise AssertionError(f"{trainer.trainer_name} validation: Dice {dice}, "
+                             f"{launches} scan launches")
+    return launches
+
+
+def phase_planned_3d(card):
+    """Phase 14's raw dataset at 3d through the command line:
+    ``plan_and_preprocess -c 3d_fullres`` with the default planner and with
+    ``-pl ResEncUNetPlanner``, then ``train <id> 3d_fullres 0`` with the
+    default trainer (PlainConvUNet plans) and with ``-tr
+    nnUNetTrainerResEncUNet -p nnUNetResEncUNetPlans``, each cut to one epoch
+    of TRAIN_STEPS steps and one validation step, with its final validation;
+    ``predict_from_modelfolder`` on ``imagesTs`` and ``evaluate_simple``
+    against ``labelsTs`` for each. Returns the K1-K4 launches (none)."""
+    import numpy as np
+    import torch
+    from nnuzoo_tpu_torch.cli.entry_points import main as cli
+    from nnuzoo_tpu_torch.training import trainer_config
+    from nnuzoo_tpu_torch.training.trainer import Trainer
+    from nnuzoo_tpu_torch.utilities.io import load_json
+
+    raw = os.path.join(os.environ["nnUNet_raw"], RAW_NAME)
+    pp = os.path.join(os.environ["nnUNet_preprocessed"], RAW_NAME)
+    runs = {}
+    for planner, plans_name, trainer_name in (
+            ("ExperimentPlanner", "nnUNetPlans", CNN),
+            ("ResEncUNetPlanner", "nnUNetResEncUNetPlans", RESENC)):
+        planning = {}
+        with timed_planning(planning):
+            cli(["plan_and_preprocess", "-d", str(RAW_ID), "-c", "3d_fullres",
+                 "-np", "4", "-pl", planner])
+        plan = load_json(os.path.join(pp, plans_name + ".json"))[
+            "configurations"]["3d_fullres"]
+        runs[trainer_name] = dict(
+            planner=planner, plans=plans_name, patch=plan["patch_size"],
+            batch=plan["batch_size"], spacing=plan["spacing"],
+            architecture=plan["architecture"]["network_class_name"],
+            planning_s=planning["plan_experiments"],
+            preprocessing_s_per_case=planning["preprocess"] / 3)
+
+    steps = []
+    inner = Trainer.train_step
+
+    def observed_step(self, data, seg):
+        torch.cuda.synchronize()
+        before = scan_launches()
+        t0 = time.perf_counter()
+        loss = inner(self, data, seg)
+        torch.cuda.synchronize()
+        steps.append(dict(seconds=time.perf_counter() - t0, loss=loss.item(),
+                          scan_launches=scan_launches() - before))
+        return loss
+
+    bases = {n: trainer_config.TRAINER_CONFIGS[n] for n in (CNN, RESENC)}
+    for n, base in bases.items():
+        trainer_config.TRAINER_CONFIGS[n] = replace(
+            base, num_epochs=1, num_iterations_per_epoch=TRAIN_STEPS,
+            num_val_iterations_per_epoch=1)
+    Trainer.train_step = observed_step
+    reset_scan_launches()
+    try:
+        for trainer_name, run in runs.items():
+            steps.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cli(["train", str(RAW_ID), "3d_fullres", "0", "-p", run["plans"],
+                 "-device", "cuda"] + (["-tr", trainer_name]
+                                       if trainer_name != CNN else []))
+            torch.cuda.synchronize()
+            run["train_and_validation_s"] = time.perf_counter() - t0
+            run["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            run["steps"] = list(steps)
+            run["seconds_per_step_after_first"] = float(np.mean(
+                [s["seconds"] for s in steps[1:]]))
+            model_folder = os.path.join(os.environ["nnUNet_results"], RAW_NAME,
+                                        f"{trainer_name}__{run['plans']}__3d_fullres")
+            summary = load_json(os.path.join(model_folder, "fold_0", "validation",
+                                             "summary.json"))
+            run["validation_dice"] = summary["foreground_mean"]["Dice"]
+            predicted = os.path.join(os.environ["nnUNet_results"],
+                                     f"planned_3d_{trainer_name}")
+            t0 = time.perf_counter()
+            predictor = cli(["predict_from_modelfolder", "-i",
+                             os.path.join(raw, "imagesTs"), "-o", predicted,
+                             "-m", model_folder, "-f", "0", "-device", "cuda"])
+            torch.cuda.synchronize()
+            run["predict_s"] = time.perf_counter() - t0
+            run["forwards"] = predictor.forward_count
+            scores = cli(["evaluate_simple", os.path.join(raw, "labelsTs"),
+                          predicted, "-l", "1", "2", "-o",
+                          os.path.join(predicted, "summary.json"), "-np", "2"])
+            run["test_cases"] = len(scores["metric_per_case"])
+            run["foreground_dice"] = scores["foreground_mean"]["Dice"]
+            del predictor
+            torch.cuda.empty_cache()
+    finally:
+        Trainer.train_step = inner
+        trainer_config.TRAINER_CONFIGS.update(bases)
+    launches = scan_launches()
+    emit("planned_3d", card=card, dataset=RAW_NAME, runs=runs, scan_launches=launches)
+    for trainer_name, run in runs.items():
+        if len(run["steps"]) != TRAIN_STEPS or run["test_cases"] != 2 or \
+                not (np.isfinite(run["validation_dice"])
+                     and np.isfinite(run["foreground_dice"])):
+            raise AssertionError(f"planned 3d, {trainer_name}: {run}")
+    if launches or runs[RESENC]["architecture"] != "ResidualEncoderUNet":
+        raise AssertionError(f"planned 3d: {launches} scan launches, {runs}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, path, weight, per,
                  **more):
     """One kernel's line: the per-shape rows, and the times of the rows of
@@ -1781,6 +2294,29 @@ def main():
             os.environ[var] = os.path.join(tmp, var)
             os.makedirs(os.environ[var])
         planned_fwd_launches, planned_bwd_launches = phase_planned_dataset(card)
+        torch.cuda.empty_cache()
+        # the same raw dataset at 3d: PlainConvUNet and ResidualEncoderUNet
+        cnn = {"planned_3d": phase_planned_3d(card)}
+    torch.cuda.empty_cache()
+
+    # the nnU-Net CNN baselines at full width, whose paths launch no scan
+    # kernel: 3d_fullres serving, training, one step against fp64 and the
+    # final validation; 2d PlainConvUNet, U2NetP and U2Net serving and training
+    cnn["serving_3d"] = phase_cnn_serving(CNN, 3)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
+        os.environ["nnUNet_results"] = os.path.join(tmp, "results")
+        trainer, cnn["training_3d"], batch = phase_cnn_training(CNN, 3)
+        cnn["validation_3d"] = phase_cnn_validation(trainer)
+        phase_cnn_step_agreement(trainer)
+        emit("cnn_profile", trainer=CNN, dim=3, **profile_cnn_step(trainer, *batch))
+        del trainer, batch
+        torch.cuda.empty_cache()
+        for name in (CNN,) + U2NETS:
+            cnn[f"serving_2d_{name}"] = phase_cnn_serving(name, 2)
+            trainer, cnn[f"training_2d_{name}"], _ = phase_cnn_training(name, 2)
+            del trainer
+            torch.cuda.empty_cache()
 
     # one training step's scan work: the per-shape numbers at the training
     # batch weighted by the calls of each shape
@@ -1859,6 +2395,11 @@ def main():
                          M2NET_CROSS, lambda r: (r["L"], r["Dh"], r["R"]), m2_per,
                          {"training_fused": m2["training_fused"][1]})),
     ]
+    for entry in kernels:
+        # K1-K4 together on each path of the CNN baselines: none
+        entry["launches_on_cnn_paths"] = cnn
+    if any(cnn.values()):
+        raise AssertionError(f"scan kernels launched on the CNN paths: {cnn}")
     if min(serving_launches, fwd_launches, bwd_launches, validation_launches,
            files_launches, fused_serving_launches, k3_launches, k4_launches,
            fused_validation_launches, fused_files_launches,

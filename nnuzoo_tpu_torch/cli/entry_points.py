@@ -37,16 +37,19 @@ def plan_and_preprocess_entry(argv=None):
 
     from ..planning.api import extract_fingerprints, plan_experiments, preprocess
     extract_fingerprints(a.d, a.npfp, a.verify_dataset_integrity, a.clean, a.verbose)
-    plan_experiments(a.d, experiment_planner_name=a.pl,
-                     gpu_memory_target_in_gb=a.gpu_memory_target,
-                     preprocess_class_name=a.preprocessor_name,
-                     overwrite_target_spacing=a.overwrite_target_spacing,
-                     overwrite_plans_name=a.overwrite_plans_name)
+    plans_names = plan_experiments(
+        a.d, experiment_planner_name=a.pl,
+        gpu_memory_target_in_gb=a.gpu_memory_target,
+        preprocess_class_name=a.preprocessor_name,
+        overwrite_target_spacing=a.overwrite_target_spacing,
+        overwrite_plans_name=a.overwrite_plans_name)
     if not a.no_pp:
+        # the plans that the planner wrote (the reference's order; the JAX
+        # package's entry preprocesses nnUNetPlans whatever the planner)
         np_ = a.np if a.np is not None else _default_np_for(a.c)
-        plans_name = a.overwrite_plans_name or "nnUNetPlans"
-        preprocess(a.d, plans_name, configurations=a.c, num_processes=np_,
-                   verbose=a.verbose)
+        for d, plans_name in zip(a.d, plans_names):
+            preprocess([d], plans_name, configurations=a.c, num_processes=np_,
+                       verbose=a.verbose)
 
 
 def extract_fingerprint_entry(argv=None):

@@ -3,8 +3,13 @@
 The port's submodule names mirror the flax names, so conversion is a walk over
 the flattened flax tree:
 
-- a conv ``kernel`` (kh, kw, in, out) becomes ``weight`` (out, in, kh, kw); a
-  depthwise one (kh, kw, 1, C) becomes (C, 1, kh, kw) by the same permutation;
+- a conv ``kernel`` (k..., in, out), 2d or 3d, becomes ``weight`` (out, in,
+  k...); a depthwise one (kh, kw, 1, C) becomes (C, 1, kh, kw) by the same
+  permutation;
+- a transposed conv's ``kernel`` (a module named ``transpconv``; flax's
+  ``ConvTranspose``, k..., in, out) becomes ``weight`` (in, out, k...) with
+  every spatial axis flipped: flax's transposed conv applies its kernel
+  mirrored against torch's;
 - a dense ``kernel`` (in, out) becomes ``weight`` (out, in);
 - a LayerNorm/GroupNorm ``scale`` becomes ``weight``;
 - everything else (biases, the raw SS2D parameters ``x_proj_weight``,
@@ -12,7 +17,7 @@ the flattened flax tree:
 
 Any key left over on either side, or any shape that disagrees, raises.
 :func:`adamw_state_from_optax` maps the JAX trainer's optax AdamW moments the
-same way.
+same way, and :func:`sgd_state_from_optax` its SGD momentum.
 :func:`params_from_state_dict` is the reverse walk (a 1-d ``weight`` is a
 norm's ``scale``); it also takes a dict of gradients by parameter name.
 """
@@ -37,13 +42,17 @@ def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _convert_leaf(leaf: str, value: np.ndarray):
+def _convert_leaf(path, leaf: str, value: np.ndarray):
     if leaf == "kernel":
-        if value.ndim == 2:
+        nd = value.ndim
+        if nd == 2:
             return "weight", value.T
-        if value.ndim == 4:
-            return "weight", value.transpose(3, 2, 0, 1)
-        raise ValueError(f"no rule for a {value.ndim}-d kernel")
+        if path and path[-1] == "transpconv":
+            return "weight", np.flip(value.transpose(nd - 2, nd - 1, *range(nd - 2)),
+                                     axis=tuple(range(2, nd)))
+        if nd in (3, 4, 5):
+            return "weight", value.transpose(nd - 1, nd - 2, *range(nd - 2))
+        raise ValueError(f"no rule for a {nd}-d kernel")
     if leaf == "scale":
         return "weight", value
     return leaf, value
@@ -58,7 +67,7 @@ def convert_params_by_name(params: Mapping) -> Dict[str, torch.Tensor]:
     converted = {}
     for key, value in flatten_params(params).items():
         *path, leaf = key.split(".")
-        name, array = _convert_leaf(leaf, value)
+        name, array = _convert_leaf(path, leaf, value)
         # a copy: arrays decoded from msgpack are read-only views
         converted[".".join(path + [name])] = torch.from_numpy(
             np.array(array, dtype=np.float32, order="C"))
@@ -109,6 +118,29 @@ def adamw_state_from_optax(opt_state: Mapping, model: nn.Module) -> Dict[int, di
             for i, (name, _) in enumerate(model.named_parameters())}
 
 
+def sgd_state_from_optax(opt_state: Mapping, model: nn.Module) -> Dict[int, dict]:
+    """The JAX package's optimizer state of ``optax.chain(clip_by_global_norm,
+    add_decayed_weights, sgd(momentum, nesterov))`` (the nested dict that
+    ``utilities.flax_msgpack.msgpack_restore`` makes of it) as the
+    per-parameter ``state`` of ``torch.optim.SGD`` over ``model.parameters()``:
+    optax's ``trace`` (g + momentum * trace, zero at the start) is torch's
+    ``momentum_buffer``, which torch starts from the first gradient, the
+    same value. The schedule's ``count`` is the Trainer's ``step``. Any
+    other state (AdamW's moments, another chain) raises."""
+    sgd = opt_state.get("2") if set(opt_state) == {"0", "1", "2"} else None
+    if not (isinstance(sgd, Mapping) and opt_state["0"] == {}
+            and opt_state["1"] == {} and set(sgd) == {"0", "1"}
+            and isinstance(sgd["0"], Mapping) and set(sgd["0"]) == {"trace"}
+            and set(sgd["1"]) <= {"count"}):
+        raise NotImplementedError(
+            "only the optax state of chain(clip_by_global_norm, "
+            "add_decayed_weights, sgd) maps onto this package's SGD (AdamW's "
+            "onto its AdamW); the JAX checkpoint holds another")
+    trace = convert_params(sgd["0"]["trace"], model)
+    return {i: {"momentum_buffer": trace[name]}
+            for i, (name, _) in enumerate(model.named_parameters())}
+
+
 def params_from_state_dict(state: Mapping) -> dict:
     """A ``state_dict`` (or any {name: tensor} with its names, such as the
     gradients) as the JAX package's nested dict of numpy arrays, in flax
@@ -118,14 +150,18 @@ def params_from_state_dict(state: Mapping) -> dict:
         *path, leaf = key.split(".")
         value = tensor.detach().cpu().numpy()
         if leaf == "weight":
-            if value.ndim == 1:
+            nd = value.ndim
+            if nd == 1:
                 leaf = "scale"
-            elif value.ndim == 2:
+            elif nd == 2:
                 leaf, value = "kernel", value.T
-            elif value.ndim == 4:
-                leaf, value = "kernel", value.transpose(2, 3, 1, 0)
+            elif path and path[-1] == "transpconv":
+                leaf, value = "kernel", np.flip(value, axis=tuple(range(2, nd))) \
+                    .transpose(*range(2, nd), 0, 1)
+            elif nd in (3, 4, 5):
+                leaf, value = "kernel", value.transpose(*range(2, nd), 1, 0)
             else:
-                raise ValueError(f"no rule for a {value.ndim}-d weight ({key})")
+                raise ValueError(f"no rule for a {nd}-d weight ({key})")
         node = tree
         for part in path:
             node = node.setdefault(part, {})

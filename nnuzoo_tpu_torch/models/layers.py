@@ -2,21 +2,167 @@
 
 Activations are channels-last, (B, *spatial, C), as in the JAX package, so
 module outputs compare like with like. Convolutions run on a channels-first
-view of the same memory (:func:`conv_cl`).
+view of the same memory (:func:`conv_cl`; for a 3d map that view is
+``channels_last_3d`` memory).
+
+The nnU-Net units (:class:`ConvNormAct`, :class:`StackedConvBlocks`,
+:class:`ResidualBlock`, :class:`TransposedConvUp`) follow flax's
+conventions, which differ from torch's in two places: a "SAME" convolution
+with stride 2 on an even size pads one more voxel at the high end than at
+the low one (:func:`conv_same`), and a ``ConvTranspose`` kernel is the
+spatial flip of torch's (``convert.py`` flips it).
 """
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 
+CONV = {2: nn.Conv2d, 3: nn.Conv3d}
+CONV_TRANSPOSE = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
+_CONV_FN = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def tup(x, dim: int) -> Tuple[int, ...]:
+    """An int or a sequence of ``dim`` ints as a tuple of ``dim`` ints."""
+    if isinstance(x, (tuple, list)):
+        if len(x) != dim:
+            raise ValueError(f"{x} has not {dim} entries")
+        return tuple(int(i) for i in x)
+    return (int(x),) * dim
+
+
 def conv_cl(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Apply a channels-first conv module to a channels-last (B, H, W, C)
-    tensor; the permutes are views."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    """Apply a channels-first conv module to a channels-last (B, *spatial, C)
+    tensor; the moves of the channel axis are views."""
+    return conv(x.movedim(-1, 1)).movedim(1, -1)
+
+
+def same_pads(sizes: Sequence[int], kernel: Sequence[int], strides: Sequence[int],
+              dilation: Sequence[int]):
+    """The (low, high) padding of each spatial axis under flax's (XLA's)
+    "SAME": ceil(n / s) outputs, and where the total padding is odd the
+    extra voxel goes to the high end (a k=3, s=2 conv on an even size takes
+    its first tap at x[0]; torch's ``padding=1`` takes it at x[-1])."""
+    pads = []
+    for n, k, s, d in zip(sizes, kernel, strides, dilation):
+        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def conv_same(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` (an ``nn.ConvNd`` whose own padding is not used) on the
+    channels-last ``x`` with flax's "SAME" padding: symmetric padding goes to
+    the convolution, the extra high-end voxel of an odd total to ``F.pad``."""
+    pads = same_pads(x.shape[1:-1], conv.kernel_size, conv.stride, conv.dilation)
+    extra = [0, 0]                     # channels
+    for lo, hi in reversed(pads):
+        extra += [0, hi - lo]
+    if any(extra):
+        x = F.pad(x, extra)
+    y = _CONV_FN[len(pads)](x.movedim(-1, 1), conv.weight, conv.bias, conv.stride,
+                            [lo for lo, _ in pads], conv.dilation)
+    return y.movedim(1, -1)
+
+
+def instance_norm_cf(norm: nn.GroupNorm, y: torch.Tensor) -> torch.Tensor:
+    """Per-channel GroupNorm (flax's ``GroupNorm(group_size=1)``) of a
+    channels-first (B, C, *spatial) tensor. A map of one voxel normalises to
+    zero (torch's ``group_norm`` refuses that input), leaving the bias."""
+    if y[0, 0].numel() > 1:
+        return norm(y)
+    return torch.zeros_like(y) + norm.bias.reshape((1, -1) + (1,) * (y.dim() - 2))
+
+
+def instance_norm_cl(norm: nn.GroupNorm, y: torch.Tensor) -> torch.Tensor:
+    """:func:`instance_norm_cf` of a channels-last tensor."""
+    return instance_norm_cf(norm, y.movedim(-1, 1)).movedim(1, -1)
+
+
+def _norm(features: int) -> nn.GroupNorm:
+    return nn.GroupNorm(features, features, eps=1e-5)
+
+
+def _leaky(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, 0.01)
+
+
+class ConvNormAct(nn.Module):
+    """conv ("SAME") -> per-channel GroupNorm (eps 1e-5) -> LeakyReLU(0.01),
+    the nnU-Net unit; channels-last in and out."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size, strides=1,
+                 dim: int = 2):
+        super().__init__()
+        self.conv = CONV[dim](in_ch, features, tup(kernel_size, dim),
+                              stride=tup(strides, dim))
+        self.norm = _norm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _leaky(instance_norm_cl(self.norm, conv_same(self.conv, x)))
+
+
+class StackedConvBlocks(nn.Module):
+    """``num_convs`` :class:`ConvNormAct` (``conv0``..); the first carries the
+    stage's stride."""
+
+    def __init__(self, num_convs: int, in_ch: int, features: int, kernel_size,
+                 first_stride=1, dim: int = 2):
+        super().__init__()
+        for i in range(num_convs):
+            self.add_module(f"conv{i}", ConvNormAct(
+                in_ch if i == 0 else features, features, kernel_size,
+                first_stride if i == 0 else 1, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.children():
+            x = block(x)
+        return x
+
+
+class ResidualBlock(nn.Module):
+    """The basic residual block (dynamic_network_architectures BasicBlockD):
+    conv-norm-act, conv-norm, plus the input (through a 1x1 conv and a norm
+    where the stride or the width changes), then the activation."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size, first_stride=1,
+                 dim: int = 2):
+        super().__init__()
+        k, s = tup(kernel_size, dim), tup(first_stride, dim)
+        self.conv1 = CONV[dim](in_ch, features, k, stride=s)
+        self.norm1 = _norm(features)
+        self.conv2 = CONV[dim](features, features, k)
+        self.norm2 = _norm(features)
+        if any(si != 1 for si in s) or in_ch != features:
+            # a 1x1 "SAME" conv pads nothing, at any stride
+            self.skip = CONV[dim](in_ch, features, 1, stride=s)
+            self.skip_norm = _norm(features)
+        else:
+            self.skip = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _leaky(instance_norm_cl(self.norm1, conv_same(self.conv1, x)))
+        y = instance_norm_cl(self.norm2, conv_same(self.conv2, y))
+        if self.skip is not None:
+            x = instance_norm_cl(self.skip_norm, conv_cl(self.skip, x))
+        return _leaky(y + x)
+
+
+class TransposedConvUp(nn.Module):
+    """A transposed conv whose kernel is its stride (no overlap), as flax's
+    ``ConvTranspose`` under the name ``transpconv``; channels-last."""
+
+    def __init__(self, in_ch: int, features: int, strides, dim: int = 2):
+        super().__init__()
+        s = tup(strides, dim)
+        self.transpconv = CONV_TRANSPOSE[dim](in_ch, features, s, stride=s)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_cl(self.transpconv, x)
 
 
 def resize_linear(x: torch.Tensor, new_spatial: Sequence[int],
@@ -106,13 +252,18 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
 def init_parameters(model: nn.Module,
                     generator: Optional[torch.Generator] = None) -> None:
     """Initialise every parameter of ``model`` as the JAX package's flax
-    modules do: Linear/Conv weights lecun normal with zero biases, norms one
-    and zero, and modules with parameters of their own through their
-    ``reset_parameters(generator)``."""
+    modules do: Linear/Conv weights lecun normal with zero biases (a
+    transposed conv's fan-in is its input channels times its kernel's
+    size), norms one and zero, and modules with parameters of their own
+    through their ``reset_parameters(generator)``."""
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, (nn.Linear, nn.Conv2d)):
-                lecun_normal_(module.weight, module.weight[0].numel(), generator)
+            if isinstance(module, (nn.Linear, nn.Conv2d, nn.Conv3d,
+                                   nn.ConvTranspose2d, nn.ConvTranspose3d)):
+                w = module.weight
+                fan_in = w.shape[0] * w[0, 0].numel() \
+                    if getattr(module, "transposed", False) else w[0].numel()
+                lecun_normal_(w, fan_in, generator)
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
@@ -120,3 +271,13 @@ def init_parameters(model: nn.Module,
                 module.bias.zero_()
             elif next(module.parameters(recurse=False), None) is not None:
                 module.reset_parameters(generator)
+
+
+def build_seeded(factory, device, seed: int) -> nn.Module:
+    """``factory()`` built on the meta device, its parameters drawn from
+    ``seed`` on the CPU (:func:`init_parameters`), then moved to ``device``."""
+    with torch.device("meta"):
+        model = factory()
+    model = model.to_empty(device="cpu")
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(device)

@@ -22,7 +22,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .._device import resolve_device
 from ..ops.cross_scan import cross_scan_fwd_op
 from ..ops.selective_scan import scan_core_fwd_op
-from .layers import DropPath, conv_cl, init_parameters, lecun_normal_, \
+from .layers import DropPath, build_seeded, conv_cl, lecun_normal_, \
     pad_to_match, resize_linear, set_drop_path_generator
 from .registry import register_model
 from .u2net import RSU4F
@@ -281,17 +281,16 @@ def get_m2net_from_plans(plans_manager, dataset_json, configuration_manager,
     if len(configuration_manager.patch_size) != 2:
         raise ValueError("M2Net is 2D-only")
     args = (num_input_channels, label_manager.num_segmentation_heads)
-    with torch.device("meta"):
-        if small:
-            model = M2NetP(*args, deep_supervision=deep_supervision, remat=remat,
-                           stage_layers=stage_layers or (7, 6, 5, 4))
-        elif stage_layers is not None:
-            raise ValueError("M2Net takes no stage_layers (M2NetP does)")
-        else:
-            model = M2Net(*args, deep_supervision=deep_supervision, remat=remat)
-    model = model.to_empty(device="cpu")
-    init_parameters(model, torch.Generator().manual_seed(seed))
-    model = model.to(dev)
+    if small:
+        factory = functools.partial(M2NetP, *args, deep_supervision=deep_supervision,
+                                    remat=remat,
+                                    stage_layers=stage_layers or (7, 6, 5, 4))
+    elif stage_layers is not None:
+        raise ValueError("M2Net takes no stage_layers (M2NetP does)")
+    else:
+        factory = functools.partial(M2Net, *args, deep_supervision=deep_supervision,
+                                    remat=remat)
+    model = build_seeded(factory, dev, seed)
     set_drop_path_generator(model, torch.Generator(device=dev).manual_seed(seed))
     return model
 

@@ -52,9 +52,10 @@ def plan_experiment_dataset(dataset_id: Union[int, str],
     return planner.plan_experiment()
 
 
-def plan_experiments(dataset_ids: List[Union[int, str]], **kwargs) -> None:
-    for d in dataset_ids:
-        plan_experiment_dataset(d, **kwargs)
+def plan_experiments(dataset_ids: List[Union[int, str]], **kwargs) -> List[str]:
+    """Plan each dataset; the plans' names (``nnUNetResEncUNetPlans`` from
+    ``ResEncUNetPlanner``), as their files are named."""
+    return [plan_experiment_dataset(d, **kwargs)["plans_name"] for d in dataset_ids]
 
 
 def preprocess_dataset(dataset_id: Union[int, str],

@@ -26,7 +26,7 @@ frozen parameters are then put back as they were.
 Not ported yet, each raising ``NotImplementedError``: SSL and translation
 targets, device meshes and multi-process batches, bf16, and cascaded
 configurations (with a previous or a next stage). ``load_checkpoint`` also
-continues a fold that the JAX package trained with AdamW.
+continues a fold that the JAX package trained with AdamW or SGD.
 """
 
 import os
@@ -41,7 +41,8 @@ import torch
 
 from .._device import resolve_device
 from ..configuration import ANISO_THRESHOLD
-from ..convert import adamw_state_from_optax, convert_params
+from ..convert import adamw_state_from_optax, convert_params, \
+    sgd_state_from_optax
 from ..data.augment import AugmentConfig, augment_train_batch, get_patch_size, \
     prepare_val_batch
 from ..data.dataset import DatasetNumpy, infer_dataset_class, unpack_dataset
@@ -386,19 +387,24 @@ class Trainer:
 
     def apply_gradients(self) -> None:
         """Clip the gradients by their global norm, set this step's learning
-        rate and update. While the encoder is frozen (the first
-        ``freeze_encoder_epochs`` epochs), its gradients are zero before the
-        clip, the optimizer steps on every parameter, and the frozen
-        parameters are put back as they were, weight decay undone."""
+        rate and update. A parameter that the loss does not reach (the
+        deepest deep-supervision head, whose weight is 0) gets a zero
+        gradient, not None: torch's optimizers would skip it, where optax
+        decays it, moves its momentum and counts its step. While the
+        encoder is frozen (the first ``freeze_encoder_epochs`` epochs), its
+        gradients are zero before the clip, the optimizer steps on every
+        parameter, and the frozen parameters are put back as they were,
+        weight decay undone."""
         frozen = self._frozen if self.step < (self.config.freeze_encoder_epochs *
                                               self.config.num_iterations_per_epoch) \
             else []
+        for p in self.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         for p in frozen:
-            # a zero gradient, not None: torch's AdamW would skip the
-            # parameter, and its step count would fall behind optax's
-            p.grad = torch.zeros_like(p) if p.grad is None else p.grad.zero_()
+            p.grad.zero_()
         kept = [p.detach().clone() for p in frozen]
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        grads = [p.grad for p in self.model.parameters()]
         clip_by_global_norm_(grads, self.config.grad_clip_norm)
         lr = self._step_schedule(self.step)
         for group in self.optimizer.param_groups:
@@ -708,8 +714,10 @@ class Trainer:
     def load_checkpoint(self, filename_or_checkpoint) -> None:
         """This package's checkpoint, or the JAX package's: its
         ``network_weights`` and ``optimizer_state`` are flax msgpack bytes of
-        the params and of the optax state, of which only AdamW's maps here
-        (``convert.adamw_state_from_optax``)."""
+        the params and of the optax state, AdamW's or SGD's, which map onto
+        this trainer's optimizer of the same kind
+        (``convert.adamw_state_from_optax``, ``convert.sgd_state_from_optax``;
+        another raises)."""
         if not self.was_initialized:
             self.initialize()
         ckpt = filename_or_checkpoint
@@ -717,14 +725,12 @@ class Trainer:
             ckpt = load_pickle(ckpt)
         weights = ckpt["network_weights"]
         if isinstance(weights, (bytes, bytearray)):
-            if not isinstance(self.optimizer, torch.optim.AdamW):
-                raise NotImplementedError(
-                    f"a JAX checkpoint continues only with AdamW, not "
-                    f"{type(self.optimizer).__name__}")
+            from_optax = {torch.optim.AdamW: adamw_state_from_optax,
+                          torch.optim.SGD: sgd_state_from_optax}[type(self.optimizer)]
             self.model.load_state_dict(
                 convert_params(msgpack_restore(weights), self.model))
             optimizer_state = self.optimizer.state_dict()
-            optimizer_state["state"] = adamw_state_from_optax(
+            optimizer_state["state"] = from_optax(
                 msgpack_restore(ckpt["optimizer_state"]), self.model)
             self.optimizer.load_state_dict(optimizer_state)
         else:

@@ -103,14 +103,14 @@ TRAINER_CONFIGS["nnUNetTrainerFineTuneDecoderWarmUp"] = replace(
     scheduler="finetune_warmup", freeze_encoder_epochs=50,
     encoder_warmup_epochs=25, decoder_warmup_epochs=50)
 
-_FRACTIONS = {"_05Percent": 0.05, "_10Percent": 0.10, "_25Percent": 0.25,
+DATA_FRACTIONS = {"_05Percent": 0.05, "_10Percent": 0.10, "_25Percent": 0.25,
               "_50Percent": 0.50, "_75Percent": 0.75}
 
 
 def get_trainer_config(trainer_name: str) -> TrainerConfig:
     if trainer_name in TRAINER_CONFIGS:
         return TRAINER_CONFIGS[trainer_name]
-    for suffix, frac in _FRACTIONS.items():
+    for suffix, frac in DATA_FRACTIONS.items():
         if trainer_name.endswith(suffix):
             base = get_trainer_config(trainer_name[: -len(suffix)])
             return replace(base, data_fraction=frac)

@@ -33,7 +33,8 @@ for wanted in ("training.trainer", "training.losses", "training.schedulers",
                "imageio.tiff", "evaluation.metrics", "utilities.flax_msgpack",
                "utilities.dataset_utils", "cli.entry_points", "cli.__main__",
                "planning.api", "planning.planner", "planning.fingerprint",
-               "utilities.json_export", "run.load_pretrained_weights"):
+               "utilities.json_export", "run.load_pretrained_weights",
+               "models.dynamic_unet", "models.u2net", "models.registry"):
     assert "nnuzoo_tpu_torch." + wanted in names, wanted
 """
 

@@ -7,10 +7,10 @@ on both sides) loads into the port's ``Trainer``, and the port's next step
 matches the JAX package's next step within ``test_torch_train_step.py``'s
 limits (loss 1e-5, each gradient 1e-3 of its own largest entry plus 1e-5 of
 the largest of all, the AdamW update 2% of lr). That needs optax's ``mu`` and
-``nu`` in exactly the layouts of the converted params. Another optimizer
-state raises. The pretrained-weight transfer moves as many arrays as the JAX
-function on the same pair of checkpoints, and the pickle unpickles where JAX
-cannot be imported.
+``nu`` in exactly the layouts of the converted params. An optimizer state of
+another kind than the port's optimizer raises. The pretrained-weight
+transfer moves as many arrays as the JAX function on the same pair of
+checkpoints, and the pickle unpickles where JAX cannot be imported.
 
 Most of the file's time (about 40 s on one CPU core) is XLA's compile of the
 JAX gradient, shared by the two JAX steps.
@@ -153,9 +153,9 @@ print(sorted(ckpt), sorted(params), ckpt["step"], ckpt["_best_ema"])
 
 
 def test_other_optimizer_states_raise(initial_checkpoint, folders):
-    """SGD's optax state (the JAX ``nnUNetTrainer``'s chain) has no
-    counterpart here yet, and a JAX AdamW state does not go into the port's
-    SGD."""
+    """SGD's optax state (the JAX ``nnUNetTrainer``'s chain) does not go into
+    the port's AdamW, nor a JAX AdamW state into its SGD
+    (``tests/test_torch_cnn_trainer.py`` continues an SGD state in SGD)."""
     jt, path = initial_checkpoint
     cfg = jt.config
     sgd = optax.chain(optax.clip_by_global_norm(cfg.grad_clip_norm),

@@ -178,8 +178,9 @@ def test_run_training_entry_point_and_the_parts_that_wait(dataset, monkeypatch):
         "2d": dict(plans["configurations"]["2d"], previous_stage="3d_lowres")}}
     with pytest.raises(NotImplementedError, match="cascaded"):
         Trainer(cascaded, "2d", 0, dataset_json, device="cpu", trainer_name=NAME)
+    # nnUNetTrainer has a model now; a zoo model without one raises
     with pytest.raises(RuntimeError, match="No model registered"):
-        make(dataset_json, trainer_name="nnUNetTrainer").initialize()
+        make(dataset_json, trainer_name="nnUNetTrainerSwinUMamba").initialize()
 
 
 def test_entry_points_raise_without_the_card_they_were_asked_for(dataset):
