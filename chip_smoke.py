@@ -112,15 +112,35 @@ Phases, one line each (a failure anywhere exits non-zero):
      22 again for each;
      phases 19-23 print seconds, peak memory and the launches of K1-K4,
      which must be none;
- 24. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
-     on every path, M2Net's under the key ``m2net``, and on each CNN path
-     (none) under ``launches_on_cnn_paths``;
- 25. last line ``{"ok": true, "device": {...}}``.
+ 24. the Mamba baselines, after phase 3: K1 (with the chunk
+     carries, and timed without) and K2 against their plain versions at
+     every (L, K*Dh, K) of SwinUMamba(D), LightMUNet, LightSS2DMambaUNet and
+     SegMamba that no earlier phase has (MAMBA_SCANS_2D at batch 12,
+     MAMBA_SCANS_3D at batch 2; K=1 with K*Dh 64-768, K=4 with K*Dh up to
+     6144, lengths up to 1.77M), and on steep-decay inputs;
+ 25. one MambaBlock (bimamba None and "v3") at SegMamba's stage-0 width and
+     one LightMUNet MambaLayer, kernel path against plain path, output and
+     every gradient;
+ 26. serving each of the five Mamba trainers at full width with seeded
+     weights (after phase 15): phase 4's volume, settings and tile-batch
+     check, K1 launches a forward as the CPU tests' scan tables count them;
+ 27. training each of them (after phase 16, on phase 5's dataset): 4 steps
+     at batch 12 and a validation step, K1 and K2 launches a step, peak
+     memory; one full-width step against fp64 for SwinUMamba, LightMUNet
+     and SegMamba by phase 16's rule;
+ 28. LightMUNet and SegMamba at 3d_fullres on phase 20-21's plan and
+     dataset (after phase 23): serving the 1x64x256x256 volume and 4
+     training steps at batch 2, seconds, peak memory and launches;
+ 29. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
+     on every path, M2Net's under the key ``m2net``, the Mamba baselines'
+     under ``mamba`` (K1 and K2), and on each CNN path (none) under
+     ``launches_on_cnn_paths``;
+ 30. last line ``{"ok": true, "device": {...}}``.
 Every line is also written to ``chiprun_out/chip_smoke.jsonl``.
 ``--profile`` adds torch.profiler tables of one tile batch and of one
 training step under ``chiprun_out/``, for each glue. fp32 throughout (but
-for the fp64 references of phases 4, 6, 11, 12, 15, 16 and 20-23), TF32
-off for matmuls and convolutions. Phases 14 and 19 run the port's own
+for the fp64 references of phases 4, 6, 11, 12, 15, 16, 20-23, 26 and 27),
+TF32 off for matmuls and convolutions. Phases 14 and 19 run the port's own
 planning and preprocessing on the host (numpy and scipy, 4 threads).
 """
 
@@ -231,6 +251,8 @@ STEP_LIVE_GRAD = 1e-6    # a parameter counts if its fp64 gradient reaches this
 # (dA, dD, and through d_delta and dB/dC the dt and x projections): each
 # reading says what share of a path's squared gradient error sits in them
 SCAN_PARAMS = ("A_logs", "Ds", "dt_projs_weight", "dt_projs_bias", "x_proj_weight")
+# and a Mamba scan branch's (MambaBlock, K=1)
+MAMBA_SCAN_PARAMS = ("A_log", "D", "dt_proj_weight", "dt_proj_bias", "x_proj.weight")
 
 
 LOG = ROOT / "chiprun_out" / "chip_smoke.jsonl"
@@ -638,16 +660,18 @@ def ss2d_glue(glue):
             os.environ["NNUZOO_SS2D_FUSED"] = before
 
 
-def glue_kernels(glue):
+def glue_kernels(glue, trainer_name="nnUNetTrainerM2NetP"):
     """(forward kernel wrapper, backward kernel wrapper, launches of each per
-    forward, the other glue's wrappers) of an SS2D glue."""
+    forward of ``trainer_name``'s model at 256x224, the other glue's
+    wrappers) of an SS2D glue."""
     from nnuzoo_tpu_torch.ops.cross_scan import cross_scan_bwd, cross_scan_fwd
     from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
     if glue == "fused":
         return cross_scan_fwd, cross_scan_bwd, FUSED_PER_FORWARD, (scan_core,
                                                                   scan_core_bwd)
-    return scan_core, scan_core_bwd, SCANS_PER_FORWARD, (cross_scan_fwd,
-                                                         cross_scan_bwd)
+    per_forward = sum(MAMBA_SCANS_2D[trainer_name].values()) \
+        if trainer_name in MAMBA_SCANS_2D else SCANS_PER_FORWARD
+    return scan_core, scan_core_bwd, per_forward, (cross_scan_fwd, cross_scan_bwd)
 
 
 def plans_and_dataset():
@@ -688,7 +712,7 @@ def phase_end_to_end(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"
     from nnuzoo_tpu_torch.plans.plans_handler import PlansManager
     from nnuzoo_tpu_torch.preprocessing.preprocessor import DefaultPreprocessor
 
-    kernel, _, per_forward, others = glue_kernels(glue)
+    kernel, _, per_forward, others = glue_kernels(glue, trainer_name)
     plans, dataset_json = plans_and_dataset()
     pm = PlansManager(plans)
     cfg = pm.get_configuration("2d")
@@ -897,6 +921,12 @@ def write_test_folder(root, cases=2, shape=(4, 224, 256), seed=5):
     return images, labels
 
 
+def ds_scales_list(trainer):
+    """The trainer's deep-supervision scales as lists (None without)."""
+    scales = trainer.train_aug_cfg.deep_supervision_scales
+    return None if scales is None else [list(s) for s in scales]
+
+
 def phase_training(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"):
     """``Trainer.run_training()`` of ``trainer_name`` for one epoch of
     TRAIN_STEPS steps and one validation step, with one SS2D glue, on the
@@ -907,7 +937,7 @@ def phase_training(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"):
     import torch
     from nnuzoo_tpu_torch.training.trainer import Trainer
 
-    fwd_kernel, bwd_kernel, per_forward, others = glue_kernels(glue)
+    fwd_kernel, bwd_kernel, per_forward, others = glue_kernels(glue, trainer_name)
     plans, dataset_json = plans_and_dataset()
     folder = os.path.join(os.environ["nnUNet_preprocessed"], plans["dataset_name"],
                           "nnUNetPlans_2d")
@@ -954,7 +984,14 @@ def phase_training(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"):
 
     losses = [s["loss"] for s in steps]
     log = trainer.logger.my_fantastic_logging
-    emit("training", glue=glue, trainer=trainer_name,
+    counts = {}
+    if trainer_name in MAMBA_SCANS_2D:
+        flop, saved = model_counts(trainer.model, (TRAIN_BATCH, *PATCH, 1), True)
+        step_s = float(np.mean([s["seconds"] for s in steps[1:]]))
+        counts = dict(parameters=sum(p.numel() for p in trainer.model.parameters()),
+                      step_tflop=flop / 1e12, tflop_per_s=flop / step_s / 1e12,
+                      saved_activation_bytes=saved)
+    emit("training", glue=glue, trainer=trainer_name, **counts,
          model=type(trainer.model).__name__, steps=steps, losses=losses,
          loss_fell=losses[-1] < losses[0],
          seconds_per_step_after_first=float(np.mean([s["seconds"]
@@ -963,8 +1000,8 @@ def phase_training(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"):
          pseudo_dice=log["dice_per_class_or_region"][0],
          fwd_launches=launches[0], bwd_launches=launches[1],
          other_glue_launches=other_launches, peak_memory_bytes=peak, batch=list(batches[0][0].shape),
-         remat=trainer.model.remat,
-         ds_scales=[list(s) for s in trainer.train_aug_cfg.deep_supervision_scales])
+         remat=getattr(trainer.model, "remat", False),
+         ds_scales=ds_scales_list(trainer))
     if len(steps) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
             not np.isfinite(log["val_losses"][0]):
         raise AssertionError(f"training losses {losses}, val {log['val_losses']}")
@@ -1065,9 +1102,13 @@ def step_readings(trainer, model, data_aug, targets):
         net.train()
         outputs = net(cast(data_aug).movedim(1, -1).contiguous())
         loss = trainer._compute_loss(outputs, targets)
-        grads = torch.autograd.grad(loss, list(net.parameters()))
+        params = list(net.parameters())
+        # a deep-supervision head of loss weight 0 (SwinUMamba's /8 head)
+        # gets no gradient
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
         torch.cuda.synchronize()
-        return loss.item(), [g.double() for g in grads]
+        return loss.item(), [torch.zeros_like(p, dtype=torch.float64) if g is None
+                             else g.double() for p, g in zip(params, grads)]
 
     runs = {}
     try:
@@ -1093,7 +1134,8 @@ def step_readings(trainer, model, data_aug, targets):
     live = [i for i, w in enumerate(want)
             if w.abs().max().item() > STEP_LIVE_GRAD * want_max]
     names = [n for n, _ in model.named_parameters()]
-    is_scan = [n.rsplit(".", 1)[-1] in SCAN_PARAMS for n in names]
+    is_scan = [n.rsplit(".", 1)[-1] in SCAN_PARAMS
+               or any(n.endswith("." + p) for p in MAMBA_SCAN_PARAMS) for n in names]
     readings = {}
     for name, (loss, grads) in runs.items():
         sq = [((g - w) ** 2).sum().item() for g, w in zip(grads, want)]
@@ -1219,22 +1261,25 @@ def phase_step_agreement(trainer, glue="default"):
                              f"plain path's: {readings}")
 
 
-def phase_m2net_step_agreement(trainer):
-    """M2Net at full depth, default glue: one training step's loss and
-    gradients from weights drawn from STEP_SEED on the batch of STEP_SEED,
-    kernel path and fp32 plain path against the plain path in fp64, under
-    phase 6's full-depth rule: the kernel path's error norm within
-    ``kernel_over_plain`` of the fp32 plain path's. M2NetP's absolute
-    full-depth limits are not assumed to hold for M2Net, whose norms sit
-    after 512- and 256-channel PatchExpands: its distances are reported."""
+def phase_full_step_agreement(trainer):
+    """The trainer's model at full width and depth (M2Net,
+    SwinUMamba, LightMUNet and SegMamba), default glue: one training step's
+    loss and gradients from weights drawn from STEP_SEED on the batch of
+    STEP_SEED, kernel path and fp32 plain path against the plain path in
+    fp64, under phase 6's full-depth rule: the kernel path's error norm
+    within ``kernel_over_plain`` of the fp32 plain path's. M2NetP's absolute
+    full-depth limits are not assumed to hold for these models: their
+    distances are reported."""
     from nnuzoo_tpu_torch.models.registry import get_model_builder
     model = get_model_builder(trainer.trainer_name)(
         trainer.plans_manager, trainer.dataset_json, trainer.configuration_manager,
         trainer.num_input_channels, True, device="cuda", seed=STEP_SEED)
     readings, reference = step_readings(
         trainer, model, *augmented(trainer, *seeded_batch(trainer)))
+    model_name = type(model).__name__
     del model
-    emit("step_agreement", glue="default", model="M2Net", depth="full_depth",
+    emit("step_agreement", glue="default", model=model_name,
+         trainer=trainer.trainer_name, depth="full_depth",
          batch=STEP_BATCH, seed=STEP_SEED, sampler_seed=STEP_SEED,
          kernel_over_plain=readings["kernel"]["grad_err_norm"]
          / readings["plain_fp32"]["grad_err_norm"], **reference, **readings)
@@ -1242,8 +1287,9 @@ def phase_m2net_step_agreement(trainer):
     if not (all(r["finite"] for r in readings.values())
             and readings["kernel"]["grad_err_norm"]
             <= limit * readings["plain_fp32"]["grad_err_norm"]):
-        raise AssertionError(f"M2Net training step at full depth: the kernel "
-                             f"path's gradients against fp64, {readings}")
+        raise AssertionError(f"{trainer.trainer_name} training step at full "
+                             f"depth: the kernel path's gradients against fp64, "
+                             f"{readings}")
 
 
 M2NET = "nnUNetTrainerM2Net"
@@ -1748,18 +1794,36 @@ def model_flop(model, batch_shape, backward):
     """Operations of one forward (and with ``backward`` the backward too) of
     ``model`` on a channels-last input of ``batch_shape``, as
     ``torch.utils.flop_counter`` counts them on a copy on the meta device
-    (a convolution's multiply-adds count twice)."""
+    (a convolution's multiply-adds count twice; the scans and norms are not
+    counted)."""
+    return model_counts(model, batch_shape, backward)[0]
+
+
+def model_counts(model, batch_shape, backward):
+    """(``model_flop``, the bytes of the tensors that the forward saves for
+    the backward, counted each time an op saves one, so views and shared
+    tensors count more than once: an upper bound)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
-    meta = copy.deepcopy(model).to("meta")
+    # eval mode: DropPath, the one module that differs, would draw its masks
+    # from a generator on the card
+    meta = copy.deepcopy(model).to("meta").eval()
     x = torch.empty(batch_shape, device="meta")
+    saved = [0]
+
+    def pack(t):
+        saved[0] += t.numel() * t.element_size()
+        return t
+
     with FlopCounterMode(display=False) as counter:
         if backward:
-            sum(o.sum() for o in meta(x)).backward()
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                outputs = meta(x)
+            sum(o.sum() for o in outputs).backward()
         else:
             with torch.no_grad():
                 meta(x)
-    return counter.get_total_flops()
+    return counter.get_total_flops(), saved[0]
 
 
 def cnn_plans(dim):
@@ -1781,13 +1845,22 @@ def cnn_plans(dim):
     return plans, dataset_json, "3d_fullres"
 
 
+def scan_calls(trainer_name, dim):
+    """K1 launches of one forward of the trainer's model at full width
+    (256x224, or zoo_sweep's 3d patch): none for the CNN baselines."""
+    table = MAMBA_SCANS_3D if dim == 3 else MAMBA_SCANS_2D
+    return sum(table.get(trainer_name, {}).values())
+
+
 def phase_cnn_serving(trainer_name, dim):
-    """Serving a CNN baseline at full width through
-    ``Predictor.predict_single_npy_array``: at 3d zoo_sweep's plan on a
-    seeded 1x64x256x256 volume (8 tiles, tile batch 2, mirror TTA over 3
-    axes), at 2d phase 4's volume and settings. Seconds per volume, peak
-    memory and K1-K4 launches (none); one tile batch's logits, fp32 against
-    the same model in fp64, by phase 4's limits. Returns the launches."""
+    """Serving a CNN baseline (or a Mamba baseline at 3d) at
+    full width through ``Predictor.predict_single_npy_array``: at 3d
+    zoo_sweep's plan on a seeded 1x64x256x256 volume (8 tiles, tile batch 2,
+    mirror TTA over 3 axes), at 2d phase 4's volume and settings. Seconds
+    per volume, peak memory and K1-K4 launches (none for a CNN; a Mamba
+    model's K1 launches a forward as its scan table says); for a CNN one tile
+    batch's logits, fp32 against the same model in fp64, by phase 4's
+    limits. Returns the launches."""
     import numpy as np
     import torch
     from nnuzoo_tpu_torch.inference.predictor import Predictor
@@ -1801,6 +1874,7 @@ def phase_cnn_serving(trainer_name, dim):
     pm = PlansManager(plans)
     cfg = pm.get_configuration(name)
     patch = tuple(cfg.patch_size)
+    per_forward = scan_calls(trainer_name, dim)
     t0 = time.perf_counter()
     model = get_model_builder(trainer_name)(pm, dataset_json, cfg, 1,
                                             deep_supervision=False, device="cuda",
@@ -1832,21 +1906,28 @@ def phase_cnn_serving(trainer_name, dim):
     launches, forwards = scan_launches(), predictor.forward_count
     labels = sorted(int(v) for v in np.unique(seg))
     tile_flop = model_flop(model, (1, *patch, 1), backward=False)
-    emit("cnn_serving", trainer=trainer_name, model=type(model).__name__, dim=dim,
+    emit("mamba_serving_3d" if per_forward else "cnn_serving",
+         trainer=trainer_name, model=type(model).__name__, dim=dim,
          parameters=sum(p.numel() for p in model.parameters()), patch=list(patch),
          model_build_s=build_s, seconds_per_volume=seconds,
          tile_tflop=tile_flop / 1e12,
          tflop_per_s=tile_flop * forwards * tile_batch / seconds / 1e12,
-         volume=list(volume.shape),
+         scans_per_forward=per_forward, volume=list(volume.shape),
          segmentation_shape=list(seg.shape), labels=labels, tile_batch=tile_batch,
          forwards=forwards, scan_launches=launches,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     if seg.shape != volume.shape[1:] or not set(labels) <= {0, 1, 2} or \
-            forwards == 0 or launches:
+            forwards == 0 or launches != per_forward * forwards:
         raise AssertionError(f"{trainer_name} serving: segmentation {seg.shape} "
                              f"labels {labels}, {forwards} forwards, {launches} "
-                             f"scan launches")
+                             f"scan launches, {per_forward} a forward expected")
 
+    if per_forward:
+        # a Mamba model at 3d: its fp64 twin would run the plain scan over
+        # up to 1.77M positions for each of 8 mirrorings; its kernels are
+        # held to their plain versions at these shapes in phase 24
+        torch.cuda.empty_cache()
+        return launches
     # the first tile batch of the volume, fp32 against the model in fp64
     data, _ = DefaultPreprocessor().run_case_npy(
         volume, None, dict(props), pm, cfg, dataset_json)
@@ -1875,14 +1956,18 @@ def phase_cnn_serving(trainer_name, dim):
 
 
 def phase_cnn_training(trainer_name, dim):
-    """``Trainer.run_training()`` of a CNN baseline for one epoch of
-    TRAIN_STEPS steps and one validation step (SGD and poly for the
-    PlainConvUNet), at 3d on three seeded preprocessed 1x80x256x256 cases at
-    zoo_sweep's spacing (written unless there), at 2d on phase 5's dataset.
-    Seconds per step, peak memory, K1-K4 launches (none). Returns the
-    trainer, the launches and the last batch."""
+    """``Trainer.run_training()`` of a CNN baseline (or a Mamba
+    baseline at 3d) for one epoch of TRAIN_STEPS steps and one
+    validation step (SGD and poly for the PlainConvUNet), at 3d on three
+    seeded preprocessed 1x80x256x256 cases at zoo_sweep's spacing (written
+    unless there), at 2d on phase 5's dataset. Seconds per step, peak
+    memory, K1-K4 launches (none for a CNN; a Mamba model's K1 and K2 as its
+    scan table says, each step and the validation step). Returns the
+    trainer, the launches (all of K1-K4; K1's and K2's for a Mamba model)
+    and the last batch."""
     import numpy as np
     import torch
+    from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
     from nnuzoo_tpu_torch.training.trainer import Trainer
 
     plans, dataset_json, name = cnn_plans(dim)
@@ -1923,36 +2008,44 @@ def phase_cnn_training(trainer_name, dim):
     seconds = time.perf_counter() - t0
     trainer.train_step = inner
     launches = scan_launches()
+    k1_k2 = scan_core.launches, scan_core_bwd.launches
+    per_forward = scan_calls(trainer_name, dim)
     peak = torch.cuda.max_memory_allocated()
     losses = [s["loss"] for s in steps]
     log = trainer.logger.my_fantastic_logging
     step_s = float(np.mean([s["seconds"] for s in steps[1:]]))
-    step_flop = model_flop(trainer.model, (batches[0][0].shape[0],
-                                           *trainer.configuration_manager.patch_size,
-                                           1), backward=True)
+    step_flop, saved = model_counts(
+        trainer.model, (batches[0][0].shape[0],
+                        *trainer.configuration_manager.patch_size, 1),
+        backward=True)
     readings = dict(
         trainer=trainer_name, model=type(trainer.model).__name__, dim=dim,
         parameters=sum(p.numel() for p in trainer.model.parameters()),
         optimizer=type(trainer.optimizer).__name__, steps=steps, losses=losses,
         seconds_per_step_after_first=step_s, step_tflop=step_flop / 1e12,
-        tflop_per_s=step_flop / step_s / 1e12,
+        tflop_per_s=step_flop / step_s / 1e12, saved_activation_bytes=saved,
+        k1_launches=k1_k2[0], k2_launches=k1_k2[1], scans_per_forward=per_forward,
         run_training_seconds=seconds, val_loss=log["val_losses"][0],
         pseudo_dice=log["dice_per_class_or_region"][0], scan_launches=launches,
         peak_memory_bytes=peak, batch=list(batches[0][0].shape),
         initial_patch=list(trainer.train_aug_cfg.initial_patch_size),
         do_dummy_2d=trainer.train_aug_cfg.do_dummy_2d,
-        ds_scales=[list(s) for s in trainer.train_aug_cfg.deep_supervision_scales])
-    emit("cnn_training", **readings)
+        ds_scales=ds_scales_list(trainer))
+    emit(f"mamba_training_{dim}d" if per_forward else "cnn_training", **readings)
     if len(steps) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
-            not np.isfinite(log["val_losses"][0]) or launches:
+            not np.isfinite(log["val_losses"][0]) or \
+            k1_k2 != ((TRAIN_STEPS + 1) * per_forward, TRAIN_STEPS * per_forward) \
+            or launches != sum(k1_k2) or any(
+                s["scan_launches"] != 2 * per_forward for s in steps):
         raise AssertionError(f"{trainer_name} training: losses {losses}, val "
-                             f"{log['val_losses']}, {launches} scan launches")
+                             f"{log['val_losses']}, {launches} scan launches "
+                             f"(K1, K2: {k1_k2}), {per_forward} a forward expected")
     if tuple(batches[0][0].shape[:2]) != (trainer.configuration_manager.batch_size, 1):
         raise AssertionError(f"batch shape {batches[0][0].shape}")
     for f in ("checkpoint_final.pth", "checkpoint_best.pth"):
         if not os.path.isfile(os.path.join(trainer.output_folder, f)):
             raise AssertionError(f"{f} was not written")
-    return trainer, launches, batches[-1]
+    return trainer, (k1_k2 if per_forward else launches), batches[-1]
 
 
 def profile_cnn_step(trainer, data, seg):
@@ -2173,6 +2266,204 @@ def phase_planned_3d(card):
     return launches
 
 
+SWIN_UMAMBA = "nnUNetTrainerSwinUMamba"
+SWIN_UMAMBA_D = "nnUNetTrainerSwinUMambaD"
+LIGHT_MUNET = "nnUNetTrainerLightMUNet"
+LIGHT_SS2D = "nnUNetTrainerLightSS2DMambaUNet"
+SEG_MAMBA = "nnUNetTrainerSegMamba"
+MAMBA_TRAINERS = (SWIN_UMAMBA, SWIN_UMAMBA_D, LIGHT_MUNET, LIGHT_SS2D, SEG_MAMBA)
+# {(L, K*Dh, K): scan calls} of one forward at 256x224 and at zoo_sweep's 3d
+# patch 48x192x192, as the CPU tests fix them (tests/test_torch_light_munet.py,
+# test_torch_seg_mamba.py, test_torch_swin_umamba.py); a MambaBlock branch
+# scans K=1 direction of d_inner channels, an SS2D K=4 of d_inner each
+MAMBA_SCANS_2D = {
+    SWIN_UMAMBA: {(3584, 768, 4): 2, (896, 1536, 4): 2, (224, 3072, 4): 9,
+                  (56, 6144, 4): 2},
+    SWIN_UMAMBA_D: {(3584, 768, 4): 3, (896, 1536, 4): 3, (224, 3072, 4): 10,
+                    (56, 6144, 4): 2, (14336, 384, 4): 1},
+    LIGHT_MUNET: {(57344, 64, 1): 3, (14336, 128, 1): 5, (3584, 256, 1): 5,
+                  (896, 512, 1): 8},
+    LIGHT_SS2D: {(57344, 256, 4): 3, (14336, 512, 4): 5, (3584, 1024, 4): 5,
+                 (896, 2048, 4): 8},
+    SEG_MAMBA: {(14336, 96, 1): 6, (3584, 192, 1): 6, (896, 384, 1): 6,
+                (224, 768, 1): 6}}
+MAMBA_SCANS_3D = {
+    LIGHT_MUNET: {(1769472, 64, 1): 3, (221184, 128, 1): 5, (27648, 256, 1): 5,
+                  (3456, 512, 1): 8},
+    SEG_MAMBA: {(221184, 96, 1): 6, (27648, 192, 1): 6, (3456, 384, 1): 6,
+                (432, 768, 1): 6}}
+MAMBA_3D_BATCH = 2
+# the fp64 step check at full width (phase 16's rule) for these three
+MAMBA_STEP_CHECKED = (SWIN_UMAMBA, LIGHT_MUNET, SEG_MAMBA)
+
+
+def mamba_scan_shapes():
+    """(L, K*Dh, K, batch, steep) of K1/K2 for the Mamba baselines: every
+    (L, K*Dh, K) of their tables that no earlier phase has (M2NetP's K*Dh
+    128 and M2Net's 256-1024 at K=4, at their lengths), at batch 12 for the
+    2d lengths and 2 for the 3d ones; and steep decay (phase 2's inputs) at
+    K=1 with K*Dh 64 and 96 and at K=4 with K*Dh 6144."""
+    seen = {(L, KD, K_DIRS) for L, _ in PATH_SHAPES} | \
+        {(L, kd, K_DIRS) for L, kd in M2NET_SCANS}
+    shapes = []
+    for table, batch in ((MAMBA_SCANS_2D, TRAIN_BATCH),
+                         (MAMBA_SCANS_3D, MAMBA_3D_BATCH)):
+        for scans in table.values():
+            for key in scans:
+                if key not in seen:
+                    seen.add(key)
+                    shapes.append(key + (batch, False))
+    return shapes + [(3000, 64, 1, TRAIN_BATCH, True),
+                     (3000, 96, 1, TRAIN_BATCH, True),
+                     (56, 6144, 4, TRAIN_BATCH, True)]
+
+
+def phase_mamba_scan_kernels(seed=2000):
+    """K1 (with the chunk carries a backward starts from, and timed also
+    without them) and K2 on K1's carries against their plain versions at each
+    shape of ``mamba_scan_shapes``: y, carries and the four gradients to
+    SCAN_TOL / SCAN_BWD_TOL of their max, times and bounds. The plain
+    versions walk chunks of 256 steps (the plain path's), or of 2048 at
+    L > 100,000, where 256-step chunks would take the host minutes of
+    launches; a row names its chunk. Returns the forward and backward
+    rows."""
+    import torch
+    from nnuzoo_tpu_torch.ops.selective_scan import (
+        _pick_chunk, scan_core, scan_core_bwd, scan_core_bwd_plain,
+        scan_core_plain)
+    fwd_rows, bwd_rows = [], []
+    for i, (L, kd, k, b, steep) in enumerate(mamba_scan_shapes(), start=seed):
+        args, dy = scan_inputs(b, L, kd, N_STATE, k, seed=i, steep=steep)
+        chunk = 2048 if L > 100_000 else 256
+        with torch.inference_mode():
+            y, carries = scan_core(*args, return_carries=True)
+            want, want_carries = scan_core_plain(
+                *args, chunk=_pick_chunk(b, L, kd), return_carries=True)
+            torch.cuda.synchronize()
+            err, scale = (y - want).abs().max().item(), want.abs().max().item()
+            carries_err = (carries - want_carries).abs().max().item()
+            carries_scale = want_carries.abs().max().item()
+            del want, want_carries
+            ms_carries = time_ms(lambda: scan_core(*args, return_carries=True),
+                                 reps=10)
+            ms = time_ms(lambda: scan_core(*args), reps=10)
+            plain_ms = time_ms(lambda: scan_core_plain(*args, chunk=chunk), reps=1,
+                               warmup=0)
+        bound_ms, bound_by = scan_bound(b, L, kd, N_STATE, k)
+        # "ms" is the training step's call (with the carries), as phase 2's
+        # rows at the training batch are
+        row = dict(B=b, L=L, KD=kd, K=k, N=N_STATE, steep=steep, max_abs_err=err,
+                   rel_err=err / scale,
+                   carries_rel_err=carries_err / max(carries_scale, 1e-30),
+                   ms=ms_carries, ms_without_carries=ms, plain_ms=plain_ms,
+                   plain_chunk=chunk, bound_ms=bound_ms, bound_by=bound_by)
+        emit("mamba_scan_kernel", **row)
+        if not (err <= SCAN_TOL * scale
+                and carries_err <= SCAN_TOL * carries_scale):
+            raise AssertionError(f"scan kernel disagrees at B={b} L={L} KD={kd} "
+                                 f"K={k}: y {err} against {scale}, carries "
+                                 f"{carries_err} against {carries_scale}")
+        fwd_rows.append(row)
+        carries = carries if carries.shape[1] > 1 else None
+        with torch.inference_mode():
+            got = scan_core_bwd(*args, dy, carries)
+            want = scan_core_bwd_plain(*args, dy, chunk=chunk)
+            torch.cuda.synchronize()
+            errs = {name: ((g - w).abs().max().item(), w.abs().max().item())
+                    for name, g, w in zip(("du", "ddelta", "dbc", "dA"), got, want)}
+            del got, want
+            ms = time_ms(lambda: scan_core_bwd(*args, dy, carries), reps=10)
+            plain_ms = time_ms(lambda: scan_core_bwd_plain(*args, dy, chunk=chunk),
+                               reps=1, warmup=0)
+        bound_ms, bound_by = scan_bwd_bound(b, L, kd, N_STATE, k)
+        row = dict(B=b, L=L, KD=kd, K=k, N=N_STATE, steep=steep,
+                   max_abs_err=max(e for e, _ in errs.values()),
+                   rel_err={n: e / m for n, (e, m) in errs.items()}, ms=ms,
+                   plain_ms=plain_ms, plain_chunk=chunk, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        emit("mamba_scan_bwd_kernel", **row)
+        for name, (e, m) in errs.items():
+            if not e <= SCAN_BWD_TOL * m:
+                raise AssertionError(f"backward scan kernel disagrees at L={L} "
+                                     f"KD={kd} K={k}, {name}: {e} > "
+                                     f"{SCAN_BWD_TOL} * {m}")
+        bwd_rows.append(row)
+        del args, dy, carries
+        torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+def phase_mamba_blocks():
+    """A MambaBlock (bimamba None and "v3" with 64 slices) at SegMamba's
+    stage-0 width (d_model 48, 2x14336 tokens) and a LightMUNet MambaLayer
+    (32 to 64 channels, 2x256x224, axis order (1, 0)): the kernel path
+    against the plain path (autograd through the plain scan), the output to
+    SS2D_TOL of its max, the input's and every parameter's gradient to
+    SS2D_GRAD_TOL of each one's max."""
+    import torch
+    from nnuzoo_tpu_torch.models.layers import init_parameters
+    from nnuzoo_tpu_torch.models.light_munet import MambaLayer
+    from nnuzoo_tpu_torch.models.mamba import MambaBlock
+    from nnuzoo_tpu_torch.models.ss2d import set_scan_backend
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cases = (("MambaBlock", MambaBlock(48), (2, 14336, 48), {}),
+             ("MambaBlock_v3", MambaBlock(48, bimamba_type="v3", nslices=64),
+              (2, 14336, 48), {}),
+             ("MambaLayer", MambaLayer(32, 64), (2, 256, 224, 32),
+              {"order": (1, 0)}))
+    for name, module, shape, kw in cases:
+        init_parameters(module, torch.Generator().manual_seed(6))
+        module = module.cuda()
+        x = torch.randn(*shape, device="cuda", generator=g).requires_grad_()
+        names = ["input"] + [n for n, _ in module.named_parameters()]
+        leaves = [x] + list(module.parameters())
+        runs = {}
+        for backend in (None, "plain"):
+            set_scan_backend(module, backend)
+            out = module(x, **kw)
+            dout = torch.randn(out.shape, device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(7))
+            runs[backend] = (out.detach(), torch.autograd.grad(out, leaves, dout))
+            torch.cuda.synchronize()
+        c = compare(runs[None][0], runs["plain"][0])
+        rel = {n: ((a - b).abs().max() / b.abs().max()).item()
+               for n, a, b in zip(names, runs[None][1], runs["plain"][1])}
+        emit("mamba_block", block=name, shape=list(shape), **kw, **c,
+             grad_rel_err=rel)
+        bad = {n: e for n, e in rel.items() if not e <= SS2D_GRAD_TOL}
+        if not c["max_abs"] <= SS2D_TOL * c["max_ref"] or bad:
+            raise AssertionError(f"{name}: kernel path vs plain path {c}, "
+                                 f"gradients {bad}")
+        del runs, module
+        torch.cuda.empty_cache()
+
+
+def mamba_entry(fwd_rows, bwd_rows, backward, launches_by_path):
+    """A kernel's Mamba-baseline key of the kernels line: for each trainer,
+    the ms, plain ms and bound of one training step's calls (rows at the
+    training batch of each (L, K*Dh, K) weighted by the model's calls; the
+    shapes an earlier phase timed, SwinUMambaD's none, come from none here),
+    its launches a step, and the launches on each Mamba path."""
+    rows = {(r["L"], r["KD"], r["K"], r["B"]): r
+            for r in (bwd_rows if backward else fwd_rows) if not r["steep"]}
+    per_model = {}
+    for dim, table, batch in ((2, MAMBA_SCANS_2D, TRAIN_BATCH),
+                              (3, MAMBA_SCANS_3D, MAMBA_3D_BATCH)):
+        for trainer, scans in table.items():
+            own = {key: n for key, n in scans.items() if key + (batch,) in rows}
+            per_model[f"{trainer}_{dim}d"] = dict(
+                launches_per_step=sum(scans.values()),
+                timed_calls=sum(own.values()),
+                **{field: sum(n * rows[key + (batch,)][field]
+                              for key, n in own.items())
+                   for field in ("ms", "plain_ms", "bound_ms")})
+    return {"per": ("one training step of each model: its calls at each "
+                    "(L, K*Dh, K) at B=12 (2d) or B=2 (3d) times the row's ms"),
+            "per_model": per_model, "launches_by_path": launches_by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "shapes": list(rows.values())}
+
+
 def kernel_entry(name, source, replaces, launches, rows, path, weight, per,
                  **more):
     """One kernel's line: the per-shape rows, and the times of the rows of
@@ -2242,10 +2533,17 @@ def main():
     fwd_rows, bwd_rows = phase_scan_kernels()
     m2_fwd_rows, m2_bwd_rows = phase_scan_kernels("M2Net", seed=1000)
     phase_blocks()
+    # the Mamba baselines' scan shapes and blocks
+    mamba_fwd_rows, mamba_bwd_rows = phase_mamba_scan_kernels()
+    phase_mamba_blocks()
     serving_launches = phase_end_to_end(profile)
     torch.cuda.empty_cache()
     m2 = {"serving": phase_end_to_end(profile, trainer_name=M2NET)}
     torch.cuda.empty_cache()
+    mamba = {}
+    for name in MAMBA_TRAINERS:
+        mamba[f"serving_2d_{name}"] = phase_end_to_end(profile, trainer_name=name)
+        torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
         os.environ["nnUNet_results"] = os.path.join(tmp, "results")
@@ -2258,10 +2556,20 @@ def main():
         # M2Net on the same dataset: training, one step against fp64, the
         # fine-tuning trainer from its fold, and a step with remat
         trainer, m2["training"], _ = phase_training(profile, trainer_name=M2NET)
-        phase_m2net_step_agreement(trainer)
+        phase_full_step_agreement(trainer)
         m2["finetune"] = phase_finetune(trainer)
         m2["remat"] = phase_remat(trainer)
         del trainer
+        torch.cuda.empty_cache()
+        # the Mamba baselines on the same dataset: training, and one step
+        # against fp64 for three of them
+        for name in MAMBA_TRAINERS:
+            trainer, mamba[f"training_2d_{name}"], _ = phase_training(
+                profile, trainer_name=name)
+            if name in MAMBA_STEP_CHECKED:
+                phase_full_step_agreement(trainer)
+            del trainer
+            torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
     # the fused cross-scan glue (NNUZOO_SS2D_FUSED=1): K3 and K4
@@ -2317,6 +2625,13 @@ def main():
             trainer, cnn[f"training_2d_{name}"], _ = phase_cnn_training(name, 2)
             del trainer
             torch.cuda.empty_cache()
+        # LightMUNet and SegMamba at 3d_fullres on the same plan and dataset
+        for name in MAMBA_SCANS_3D:
+            mamba[f"serving_3d_{name}"] = phase_cnn_serving(name, 3)
+            torch.cuda.empty_cache()
+            trainer, mamba[f"training_3d_{name}"], _ = phase_cnn_training(name, 3)
+            del trainer
+            torch.cuda.empty_cache()
 
     # one training step's scan work: the per-shape numbers at the training
     # batch weighted by the calls of each shape
@@ -2350,7 +2665,11 @@ def main():
                          fwd_rows, m2_fwd_rows, M2NET_SCANS,
                          lambda r: (r["L"], r["KD"]), m2_per,
                          {"serving": m2["serving"], "training": m2["training"][0],
-                          "finetune": m2["finetune"][0], "remat": m2["remat"]})),
+                          "finetune": m2["finetune"][0], "remat": m2["remat"]}),
+                     mamba=mamba_entry(
+                         mamba_fwd_rows, mamba_bwd_rows, False,
+                         {k: v[0] if isinstance(v, tuple) else v
+                          for k, v in mamba.items()})),
         kernel_entry("selective_scan_bwd",
                      "nnuzoo_tpu_torch/csrc/selective_scan_bwd.cu",
                      "nnuzoo_tpu/ops/selective_scan.py:915", bwd_launches,
@@ -2362,7 +2681,11 @@ def main():
                          bwd_rows, m2_bwd_rows, M2NET_SCANS,
                          lambda r: (r["L"], r["KD"]), m2_per,
                          {"training": m2["training"][1],
-                          "finetune": m2["finetune"][1]})),
+                          "finetune": m2["finetune"][1]}),
+                     mamba=mamba_entry(
+                         mamba_fwd_rows, mamba_bwd_rows, True,
+                         {k: v[1] for k, v in mamba.items()
+                          if isinstance(v, tuple)})),
         kernel_entry("cross_scan_fwd",
                      "nnuzoo_tpu_torch/csrc/cross_scan_fwd.cu",
                      "nnuzoo_tpu/ops/cross_scan.py:313", k3_launches,
@@ -2405,7 +2728,9 @@ def main():
            fused_validation_launches, fused_files_launches,
            planned_fwd_launches, planned_bwd_launches, m2["serving"],
            *m2["training"], *m2["finetune"], m2["remat"], m2["serving_fused"],
-           *m2["training_fused"], m2["remat_fused"]) <= 0:
+           *m2["training_fused"], m2["remat_fused"],
+           *(n for v in mamba.values()
+             for n in (v if isinstance(v, tuple) else (v,)))) <= 0:
         raise AssertionError("a kernel of the main paths was never launched")
     out(json.dumps({"kernels": kernels}))
 

@@ -12,22 +12,30 @@ the flattened flax tree:
   mirrored against torch's;
 - a dense ``kernel`` (in, out) becomes ``weight`` (out, in);
 - a LayerNorm/GroupNorm ``scale`` becomes ``weight``;
-- everything else (biases, the raw SS2D parameters ``x_proj_weight``,
-  ``dt_projs_weight``, ``dt_projs_bias``, ``A_logs``, ``Ds``) passes through.
+- everything else passes through: biases, the raw SS2D parameters
+  (``x_proj_weight``, ``dt_projs_weight``, ``dt_projs_bias``, ``A_logs``,
+  ``Ds``), a Mamba scan branch's (``conv1d_weight`` (d_conv, d_inner),
+  ``conv1d_bias``, ``dt_proj_weight`` (d_inner, R), ``dt_proj_bias``,
+  ``A_log`` (d_inner, N), ``D``), ``skip_scale``, and RMSNorm's ``weight``,
+  whose flax name is ``weight``; norms without scale or bias (SegMamba's and
+  LightMUNet's per-channel GroupNorms) have no leaf on either side.
 
 Any key left over on either side, or any shape that disagrees, raises.
 :func:`adamw_state_from_optax` maps the JAX trainer's optax AdamW moments the
 same way, and :func:`sgd_state_from_optax` its SGD momentum.
 :func:`params_from_state_dict` is the reverse walk (a 1-d ``weight`` is a
-norm's ``scale``); it also takes a dict of gradients by parameter name.
+norm's ``scale``, but an RMSNorm's, which it finds through the model it is
+given); it also takes a dict of gradients by parameter name.
 """
 
 from collections.abc import Mapping
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
+
+from .models.mamba import RMSNorm
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -141,15 +149,21 @@ def sgd_state_from_optax(opt_state: Mapping, model: nn.Module) -> Dict[int, dict
             for i, (name, _) in enumerate(model.named_parameters())}
 
 
-def params_from_state_dict(state: Mapping) -> dict:
+def params_from_state_dict(state: Mapping,
+                           model: Optional[nn.Module] = None) -> dict:
     """A ``state_dict`` (or any {name: tensor} with its names, such as the
     gradients) as the JAX package's nested dict of numpy arrays, in flax
-    names and layouts."""
+    names and layouts. ``model``: the module the names are of; its RMSNorms'
+    ``weight`` keeps its name (without it, every 1-d ``weight`` becomes a
+    norm's ``scale``)."""
+    keep = set() if model is None else {
+        f"{name}.weight" if name else "weight"
+        for name, m in model.named_modules() if isinstance(m, RMSNorm)}
     tree: dict = {}
     for key, tensor in state.items():
         *path, leaf = key.split(".")
         value = tensor.detach().cpu().numpy()
-        if leaf == "weight":
+        if leaf == "weight" and key not in keep:
             nd = value.ndim
             if nd == 1:
                 leaf = "scale"

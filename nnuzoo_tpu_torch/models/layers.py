@@ -72,9 +72,12 @@ def conv_same(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
 def instance_norm_cf(norm: nn.GroupNorm, y: torch.Tensor) -> torch.Tensor:
     """Per-channel GroupNorm (flax's ``GroupNorm(group_size=1)``) of a
     channels-first (B, C, *spatial) tensor. A map of one voxel normalises to
-    zero (torch's ``group_norm`` refuses that input), leaving the bias."""
+    zero (torch's ``group_norm`` refuses that input), leaving the bias (if
+    the norm has one)."""
     if y[0, 0].numel() > 1:
         return norm(y)
+    if norm.bias is None:
+        return torch.zeros_like(y)
     return torch.zeros_like(y) + norm.bias.reshape((1, -1) + (1,) * (y.dim() - 2))
 
 
@@ -267,8 +270,9 @@ def init_parameters(model: nn.Module,
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
+                if module.weight is not None:
+                    module.weight.fill_(1.0)
+                    module.bias.zero_()
             elif next(module.parameters(recurse=False), None) is not None:
                 module.reset_parameters(generator)
 

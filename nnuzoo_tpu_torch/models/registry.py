@@ -4,8 +4,11 @@
 architecture, PlainConvUNet or ResidualEncoderUNet), ``nnUNetTrainerU2Net``
 and ``nnUNetTrainerU2NetP``, ``nnUNetTrainerM2NetP`` (M2NetP),
 ``nnUNetTrainerM2Net`` and ``nnUNetTrainerFineTuneDecoderWarmUp`` (M2Net),
-and each of them with a ``_05Percent`` .. ``_75Percent`` suffix, which
-builds the base name's model).
+the Mamba baselines ``nnUNetTrainerSwinUMamba``,
+``nnUNetTrainerSwinUMambaD``, ``nnUNetTrainerLightMUNet``,
+``nnUNetTrainerLightSS2DMambaUNet`` and ``nnUNetTrainerSegMamba``, and each
+of them with a ``_05Percent`` .. ``_75Percent`` suffix, which builds the
+base name's model).
 
     builder(plans_manager, dataset_json, configuration_manager,
             num_input_channels, deep_supervision=True, device="cuda",
@@ -58,7 +61,8 @@ def register_model(trainer_names, builder: Callable) -> None:
 
 
 def get_model_builder(trainer_name: str) -> Callable:
-    from . import m2net, u2net  # noqa: F401  (register their trainer names)
+    from . import (light_munet, m2net, seg_mamba, swin_umamba,  # noqa: F401
+                   u2net)  # (register their trainer names)
     if trainer_name in MODEL_BUILDERS:
         return MODEL_BUILDERS[trainer_name]
     # the data-fraction variants (nnUNetTrainer_25Percent ..) build the base model

@@ -13,8 +13,11 @@ reverses. Two glues compute the same function:
 
 The glue is read from ``NNUZOO_SS2D_FUSED`` when the SS2D is built ("1":
 fused; unset or "0": default), as the JAX package reads it, and can be set
-afterwards with :func:`set_ss2d_glue`. The JAX package's lane-packed glue
-(``NNUZOO_SS2D_PACKED``) is not ported yet.
+afterwards with :func:`set_ss2d_glue`. The fused kernels take Dh = d_inner a
+multiple of 32 up to 256 and a dt rank up to 8 (d_model 16..128 in steps of
+16): a wider SS2D raises on the fused glue, whether built with it or set to
+it, rather than quietly taking the default glue. The JAX package's
+lane-packed glue (``NNUZOO_SS2D_PACKED``) is not ported yet.
 """
 
 import math
@@ -25,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.cross_scan import cross_scan_fused
+from ..ops.cross_scan import KERNEL_MAX_DH, KERNEL_MAX_RANK, cross_scan_fused
 from ..ops.selective_scan import selective_scan_blkd
 from .layers import DropPath, conv_cl
 
@@ -74,7 +77,21 @@ class SS2D(nn.Module):
         self.out_proj = nn.Linear(d_inner, d_model, bias=bias)
         self.dropout = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
         self.scan_backend: Optional[str] = None
-        self.glue = "fused" if fused_scan_mode() else "default"
+        self.glue = "default"
+        if fused_scan_mode():
+            self.check_fused()
+            self.glue = "fused"
+
+    def check_fused(self) -> None:
+        """Raise ``ValueError`` where the fused glue's kernels (K3/K4) cannot
+        run this SS2D's widths."""
+        Dh, R = self.d_inner, self.dt_rank
+        if Dh % 32 or not 32 <= Dh <= KERNEL_MAX_DH or R > KERNEL_MAX_RANK:
+            raise ValueError(
+                f"the fused SS2D glue's kernels (K3/K4) take Dh = d_inner a "
+                f"multiple of 32 up to {KERNEL_MAX_DH} and dt rank R up to "
+                f"{KERNEL_MAX_RANK}; this SS2D has Dh={Dh}, R={R}: use the "
+                f"default glue")
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None,
                          dt_min: float = 0.001, dt_max: float = 0.1,
@@ -171,18 +188,24 @@ class VSSLayer(nn.Module):
 
 
 def set_scan_backend(model: nn.Module, backend: Optional[str]) -> None:
-    """Point every SS2D in ``model`` at a scan backend (None: the kernel path;
+    """Point every scan of ``model`` at a scan backend (None: the kernel path;
     "plain": the plain PyTorch scan; "plain_pair": the plain scan with its
-    plain backward). It applies to either glue."""
+    plain backward): every module with a ``scan_backend``, each SS2D (either
+    glue) and each MambaBlock's scan branch."""
     for module in model.modules():
-        if isinstance(module, SS2D):
+        if hasattr(module, "scan_backend"):
             module.scan_backend = backend
 
 
 def set_ss2d_glue(model: nn.Module, glue: str) -> None:
-    """Set the glue of every SS2D in ``model``: "default" or "fused"."""
+    """Set the glue of every SS2D in ``model``: "default" or "fused". The
+    fused glue raises ``ValueError``, and changes nothing, where an SS2D is
+    wider than its kernels take (:meth:`SS2D.check_fused`)."""
     if glue not in GLUES:
         raise ValueError(f"glue must be one of {GLUES}, got {glue!r}")
-    for module in model.modules():
-        if isinstance(module, SS2D):
-            module.glue = glue
+    blocks = [m for m in model.modules() if isinstance(m, SS2D)]
+    if glue == "fused":
+        for module in blocks:
+            module.check_fused()
+    for module in blocks:
+        module.glue = glue

@@ -20,6 +20,15 @@ Semantics follow the reference recurrence:
   whose forward is the operator :func:`scan_core_fwd_op`.
 - :func:`selective_scan_blkd`: the entry SS2D uses, with the shapes of the
   JAX package's function of the same name.
+- :func:`selective_scan`: the Mamba-convention entry (u/delta (batch, dim,
+  L), plain or grouped B/C, ``D``, ``z``, ``delta_bias``), which MambaBlock
+  calls; :func:`selective_scan_kernel` is its kernel route (the JAX
+  package's ``selective_scan_pallas``) and :func:`selective_scan_packed` the
+  entry for operands already in the kernel's layout.
+
+The JAX package sends a shape whose K*Dh overflows a TPU core's VMEM to its
+XLA scan (``_pallas_vmem_fits``); the port's kernels take those shapes, so
+every entry here runs them on the kernels.
 """
 
 import ctypes
@@ -528,9 +537,13 @@ def scan_core_bwd(u, delta, A_t, bc, dy, carries=None):
     raises on anything the kernel does not take. ``carries`` are the forward
     kernel's chunk-entry states for the same inputs; without them the forward
     kernel runs again to make them. On CPU tensors it runs
-    :func:`scan_core_bwd_plain`."""
+    :func:`scan_core_bwd_plain`; on tensors without data (the meta device)
+    it gives the gradients' shapes, as the forward operator's fake does."""
     if u.device.type == "cuda":
         return _scan_core_bwd_cuda(u, delta, A_t, bc, dy, carries)
+    if u.device.type == "meta":
+        return (torch.empty_like(u), torch.empty_like(delta), torch.empty_like(bc),
+                torch.empty_like(A_t))
     return scan_core_bwd_plain(u, delta, A_t, bc, dy)
 
 
@@ -582,6 +595,18 @@ def scan_core_grad(u, delta, A_t, bc):
     return _ScanCore.apply(u, delta, A_t, bc, torch.is_grad_enabled())
 
 
+def _scan_core_by_backend(args, backend):
+    """:func:`scan_core_grad` (None), or the plain scan with autograd through
+    it ("plain") or with its plain backward ("plain_pair")."""
+    if backend is None:
+        return scan_core_grad(*args)
+    if backend == "plain":
+        return scan_core_plain(*args)
+    if backend == "plain_pair":
+        return _ScanCorePlainPair.apply(*args)
+    raise ValueError(f"unknown scan backend {backend!r}")
+
+
 def selective_scan_blkd(u, delta, A, Bmat, Cmat, D=None, delta_bias=None,
                         delta_softplus=True, backend: Optional[str] = None):
     """Entry for cross-scan modules.
@@ -611,15 +636,80 @@ def selective_scan_blkd(u, delta, A, Bmat, Cmat, D=None, delta_bias=None,
         batch, L, K * 2 * dstate)
     args = (u32.reshape(batch, L, K * Dh).contiguous(),
             delta32.reshape(batch, L, K * Dh).contiguous(), A_t, bc)
-    if backend is None:
-        y = scan_core_grad(*args)
-    elif backend == "plain":
-        y = scan_core_plain(*args)
-    elif backend == "plain_pair":
-        y = _ScanCorePlainPair.apply(*args)
-    else:
-        raise ValueError(f"unknown scan backend {backend!r}")
-    y = y.reshape(batch, L, K, Dh)
+    y = _scan_core_by_backend(args, backend).reshape(batch, L, K, Dh)
     if D is not None:
         y = y + u32 * D.to(ct).reshape(1, 1, K, Dh)
     return y
+
+
+def selective_scan_packed(u, delta, A_t, bc, D=None, delta_bias=None,
+                          delta_softplus=True, backend: Optional[str] = None):
+    """Entry for operands already in the kernel's layout (the JAX package's
+    function of the same name): u/delta (B, L, K*Dh) with direction-major
+    channel blocks; A_t (N, K*Dh); bc (B, L, K*2N) holding [B_k | C_k] per
+    direction k; D/delta_bias (K*Dh,). Returns y (B, L, K*Dh) in fp32 (fp64
+    for fp64 inputs). ``backend`` as :func:`selective_scan_blkd`'s."""
+    ct = torch.promote_types(u.dtype, torch.float32)
+    u32 = u.to(ct)
+    delta32 = delta.to(ct)
+    if delta_bias is not None:
+        delta32 = delta32 + delta_bias.to(ct)
+    if delta_softplus:
+        delta32 = F.softplus(delta32)
+    y = _scan_core_by_backend((u32.contiguous(), delta32.contiguous(),
+                               A_t.to(ct).contiguous(), bc.to(ct).contiguous()),
+                              backend)
+    if D is not None:
+        y = y + u32 * D.to(ct)
+    return y
+
+
+def _mamba_to_packed(u, delta, B, C):
+    """Mamba-convention operands -> (u, delta (batch, L, dim), bc (batch, L,
+    K*2N)), K the groups of B/C (1 for plain B/C)."""
+    if B.dim() == 3:
+        B, C = B[:, None], C[:, None]
+    batch, K, _, L = B.shape
+    if C.shape != B.shape or u.shape[1] % K:
+        raise ValueError(f"B {tuple(B.shape)} and C {tuple(C.shape)} must be "
+                         f"(batch, K, N, L) with K dividing dim={u.shape[1]}")
+    bc = torch.cat([B, C], dim=2).permute(0, 3, 1, 2).reshape(batch, L, -1)
+    return u.transpose(1, 2), delta.transpose(1, 2), bc
+
+
+def selective_scan_kernel(u, delta, A, B, C, D=None, z=None, delta_bias=None,
+                          delta_softplus=False, return_last_state=False,
+                          backend: Optional[str] = None):
+    """The Mamba-convention entry on the kernel contract (the JAX package's
+    ``selective_scan_pallas``): u/delta/z (batch, dim, L); A (dim, N);
+    B/C (batch, N, L) or grouped (batch, K, N, L), group k owning channels
+    [k*dim/K, (k+1)*dim/K); D/delta_bias (dim,). The operands go to
+    :func:`selective_scan_packed`, so on CUDA tensors the scan runs on the
+    kernels, forwards and backwards (``backend`` None). Returns y in u's
+    dtype. The kernels keep no last state: ``return_last_state`` raises."""
+    if return_last_state:
+        raise ValueError("return_last_state: the scan kernels keep no last "
+                         "state; selective_scan(..., backend='ref') returns it")
+    u_p, d_p, bc = _mamba_to_packed(u, delta, B, C)
+    y = selective_scan_packed(u_p, d_p, A.t(), bc, D=D, delta_bias=delta_bias,
+                              delta_softplus=delta_softplus,
+                              backend=backend).transpose(1, 2)
+    if z is not None:
+        y = y * F.silu(z.to(y.dtype))
+    return y.to(u.dtype)
+
+
+def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
+                   delta_softplus=False, return_last_state=False,
+                   backend: Optional[str] = None):
+    """Dispatching entry point (the JAX package's ``selective_scan``), with
+    :func:`selective_scan_ref`'s arguments. ``backend``: None runs
+    :func:`selective_scan_kernel` (the kernels on the card, their plain
+    versions on the CPU); "plain" and "plain_pair" the same route on the
+    plain scan (see :func:`selective_scan_blkd`); "ref" the per-step
+    recurrence, the one route that returns the last state."""
+    if backend == "ref":
+        return selective_scan_ref(u, delta, A, B, C, D, z, delta_bias,
+                                  delta_softplus, return_last_state)
+    return selective_scan_kernel(u, delta, A, B, C, D, z, delta_bias,
+                                 delta_softplus, return_last_state, backend)

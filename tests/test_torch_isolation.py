@@ -34,7 +34,9 @@ for wanted in ("training.trainer", "training.losses", "training.schedulers",
                "utilities.dataset_utils", "cli.entry_points", "cli.__main__",
                "planning.api", "planning.planner", "planning.fingerprint",
                "utilities.json_export", "run.load_pretrained_weights",
-               "models.dynamic_unet", "models.u2net", "models.registry"):
+               "models.dynamic_unet", "models.u2net", "models.registry",
+               "models.mamba", "models.unetr", "models.light_munet",
+               "models.seg_mamba", "models.swin_umamba"):
     assert "nnuzoo_tpu_torch." + wanted in names, wanted
 """
 
