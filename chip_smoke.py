@@ -131,17 +131,36 @@ Phases, one line each (a failure anywhere exits non-zero):
  28. LightMUNet and SegMamba at 3d_fullres on phase 20-21's plan and
      dataset (after phase 23): serving the 1x64x256x256 volume and 4
      training steps at batch 2, seconds, peak memory and launches;
- 29. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
+ 29. the nnU-Net cascade on phase 14's raw dataset, after phase 19:
+     ``add_lowres_and_cascade``, ``preprocess -c 3d_lowres``, ``train <id>
+     3d_lowres all`` (PlainConvUNet at the planner's widths, 3 steps and a
+     validation step; its final validation writes
+     ``predicted_next_stage/3d_cascade_fullres/``), ``train <id>
+     3d_cascade_fullres 0`` with the cascade augmentation on the card and
+     its final validation on previous-stage input, ``predict`` with each
+     stage (the second with ``-prev_stage_predictions``) and
+     ``evaluate_folder``; seconds a step and peak memory of each stage, the
+     cascade augmentation's device ms a batch apart from the step, the
+     next-stage files and export seconds a case, Dice, no K1-K4 launch; its
+     morphology and component removal on the card equal the CPU's bit for
+     bit;
+ 30. the translation target: ``nnUNetTrainerM2NetP`` at full width and
+     depth on a seeded 2d dataset of float targets (phase 5's shapes, batch
+     12), 4 steps with 80 K1 and 80 K2 launches each, its final validation
+     and ``evaluate_folder`` with the regression metrics, and the step at
+     stage layers (1, 1, 1, 1) against fp64 on six seeded batches, the
+     median kernel-over-plain ratio within phase 6's 2x;
+ 31. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
      on every path, M2Net's under the key ``m2net``, the Mamba baselines'
-     under ``mamba`` (K1 and K2), and on each CNN path (none) under
-     ``launches_on_cnn_paths``;
- 30. last line ``{"ok": true, "device": {...}}``.
+     under ``mamba`` (K1 and K2), and on each CNN path, the cascade's
+     included (none), under ``launches_on_cnn_paths``;
+ 32. last line ``{"ok": true, "device": {...}}``.
 Every line is also written to ``chiprun_out/chip_smoke.jsonl``.
 ``--profile`` adds torch.profiler tables of one tile batch and of one
 training step under ``chiprun_out/``, for each glue. fp32 throughout (but
-for the fp64 references of phases 4, 6, 11, 12, 15, 16, 20-23, 26 and 27),
-TF32 off for matmuls and convolutions. Phases 14 and 19 run the port's own
-planning and preprocessing on the host (numpy and scipy, 4 threads).
+for the fp64 references of phases 4, 6, 11, 12, 15, 16, 20-23, 26, 27 and 30),
+TF32 off for matmuls and convolutions. Phases 14, 19 and 29 run the port's
+own planning and preprocessing on the host (numpy and scipy, 4 threads).
 """
 
 import contextlib
@@ -674,7 +693,10 @@ def glue_kernels(glue, trainer_name="nnUNetTrainerM2NetP"):
     return scan_core, scan_core_bwd, per_forward, (cross_scan_fwd, cross_scan_bwd)
 
 
-def plans_and_dataset():
+def plans_and_dataset(target_type="segmentation"):
+    """The 2d plans at PATCH and TRAIN_BATCH and the dataset.json: three
+    labels, or for the translation target one regression channel (the
+    labels less one)."""
     rs = {"is_seg": False, "order": 3, "order_z": 0, "force_separate_z": None}
     plans = {
         "dataset_name": "Dataset999_BenchAbdomenMR", "plans_name": "nnUNetPlans",
@@ -697,6 +719,10 @@ def plans_and_dataset():
     dataset_json = {"channel_names": {"0": "MRI"},
                     "labels": {"background": 0, "organ": 1, "tumor": 2},
                     "file_ending": ".nii.gz"}
+    if target_type == "translation":
+        plans["dataset_name"] = "Dataset998_BenchTranslation"
+        dataset_json = dict(dataset_json, target_type="translation",
+                            labels={"background": 0, "target": 1})
     return plans, dataset_json
 
 
@@ -866,7 +892,7 @@ def blob_labels(rs, shape, block):
 
 
 def write_dataset(folder, cases=3, shape=(8, 280, 320), seed=0,
-                  spacing=(3.0, 1.0, 1.0), block=40):
+                  spacing=(3.0, 1.0, 1.0), block=40, target_type="segmentation"):
     """A seeded preprocessed dataset in the format ``DatasetNumpy`` reads:
     per case ``.npz`` {data (1, z, y, x) float32, seg (1, z, y, x) int16 with
     labels 0..2} and ``.pkl`` properties with ``class_locations`` and the
@@ -874,9 +900,11 @@ def write_dataset(folder, cases=3, shape=(8, 280, 320), seed=0,
     segmentation in ``../gt_segmentations`` as the final validation reads it.
     The labels are smooth blobs (constant over ``block`` x ``block`` squares,
     which must tile y and x) that the intensities follow, so there is
-    something to learn."""
+    something to learn. For the translation target, seg is a float32 image
+    to regress, 2 * data + 10 plus a little noise (no ``class_locations``),
+    written to ``gt_segmentations`` as float32."""
     import numpy as np
-    from nnuzoo_tpu_torch.imageio.nifti import NiftiIO
+    from nnuzoo_tpu_torch.imageio.nifti import NiftiIO, write_nifti
     gt = os.path.join(os.path.dirname(folder), "gt_segmentations")
     os.makedirs(folder)
     os.makedirs(gt)
@@ -885,10 +913,14 @@ def write_dataset(folder, cases=3, shape=(8, 280, 320), seed=0,
         seg = blob_labels(rs, shape, block)[None]
         data = (seg + 0.5 * rs.randn(1, *shape)).astype(np.float32)
         locations = {}
-        for label in (1, 2):
-            where = np.argwhere(seg == label)
-            locations[label] = where[rs.choice(len(where), min(len(where), 10000),
-                                               replace=False)]
+        if target_type == "translation":
+            seg = (2 * data + 10 + 0.1 * rs.randn(1, *shape)).astype(np.float32)
+        else:
+            for label in (1, 2):
+                where = np.argwhere(seg == label)
+                locations[label] = where[rs.choice(len(where),
+                                                   min(len(where), 10000),
+                                                   replace=False)]
         np.savez_compressed(os.path.join(folder, f"case_{i:03d}.npz"),
                             data=data, seg=seg)
         props = {"class_locations": locations, "spacing": list(spacing),
@@ -897,7 +929,11 @@ def write_dataset(folder, cases=3, shape=(8, 280, 320), seed=0,
                  "shape_after_cropping_and_before_resampling": shape}
         with open(os.path.join(folder, f"case_{i:03d}.pkl"), "wb") as f:
             pickle.dump(props, f)
-        NiftiIO().write_seg(seg[0], os.path.join(gt, f"case_{i:03d}.nii.gz"), props)
+        gt_file = os.path.join(gt, f"case_{i:03d}.nii.gz")
+        if target_type == "translation":
+            write_nifti(gt_file, seg[0].transpose(2, 1, 0), spacing_xyz=spacing[::-1])
+        else:
+            NiftiIO().write_seg(seg[0], gt_file, props)
 
 
 def write_test_folder(root, cases=2, shape=(4, 224, 256), seed=5):
@@ -927,22 +963,23 @@ def ds_scales_list(trainer):
     return None if scales is None else [list(s) for s in scales]
 
 
-def phase_training(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"):
+def phase_training(profile, glue="default", trainer_name="nnUNetTrainerM2NetP",
+                   target_type="segmentation"):
     """``Trainer.run_training()`` of ``trainer_name`` for one epoch of
     TRAIN_STEPS steps and one validation step, with one SS2D glue, on the
-    seeded dataset (written unless it is there). Returns the trainer, the
-    scan launches (forward, backward) of the run and the weights it ended
-    with."""
+    seeded dataset of the target type (written unless it is there). Returns
+    the trainer, the scan launches (forward, backward) of the run and the
+    weights it ended with."""
     import numpy as np
     import torch
     from nnuzoo_tpu_torch.training.trainer import Trainer
 
     fwd_kernel, bwd_kernel, per_forward, others = glue_kernels(glue, trainer_name)
-    plans, dataset_json = plans_and_dataset()
+    plans, dataset_json = plans_and_dataset(target_type)
     folder = os.path.join(os.environ["nnUNet_preprocessed"], plans["dataset_name"],
                           "nnUNetPlans_2d")
     if not os.path.isdir(folder):
-        write_dataset(folder)
+        write_dataset(folder, target_type=target_type)
     trainer = Trainer(plans, "2d", "all", dataset_json, num_epochs=1,
                       trainer_name=trainer_name, device="cuda", seed=0)
     trainer.config = replace(trainer.config, num_iterations_per_epoch=TRAIN_STEPS,
@@ -991,7 +1028,8 @@ def phase_training(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"):
         counts = dict(parameters=sum(p.numel() for p in trainer.model.parameters()),
                       step_tflop=flop / 1e12, tflop_per_s=flop / step_s / 1e12,
                       saved_activation_bytes=saved)
-    emit("training", glue=glue, trainer=trainer_name, **counts,
+    emit("training", glue=glue, trainer=trainer_name, target_type=target_type,
+         **counts,
          model=type(trainer.model).__name__, steps=steps, losses=losses,
          loss_fell=losses[-1] < losses[0],
          seconds_per_step_after_first=float(np.mean([s["seconds"]
@@ -1173,16 +1211,20 @@ def augmented(trainer, data, seg):
 
 def seeded_batch(trainer, seed=STEP_SEED, batch_size=STEP_BATCH):
     """``batch_size`` patches that a sampler of its own, seeded with
-    ``seed``, draws from the trainer's dataset: the same batch on every run,
-    whatever the trainer's own sampler did."""
+    ``seed``, draws from the trainer's dataset (with the previous stage's
+    segmentation as target channel 1 for a cascaded configuration): the
+    same batch on every run, whatever the trainer's own sampler did."""
     import torch
     from nnuzoo_tpu_torch.data.patch_sampler import PatchSampler
     patch = tuple(trainer.configuration_manager.patch_size)
     sampler = PatchSampler(
-        trainer.dataset_class(trainer.preprocessed_dataset_folder), batch_size,
+        trainer.dataset_class(trainer.preprocessed_dataset_folder,
+                              folder_with_segs_from_previous_stage=
+                              trainer._previous_stage_folder()), batch_size,
         initial_patch_size=trainer.train_aug_cfg.initial_patch_size[-len(patch):],
         final_patch_size=patch, label_manager=trainer.label_manager,
-        oversample_foreground_percent=trainer.local_oversample, seed=seed)
+        oversample_foreground_percent=trainer.local_oversample, seed=seed,
+        target_type=trainer.target_type)
     batch = next(sampler)
     return (torch.from_numpy(batch["data"]).cuda(),
             torch.from_numpy(batch["target"]).cuda())
@@ -2266,6 +2308,296 @@ def phase_planned_3d(card):
     return launches
 
 
+# ----------------------------------------------------------------- cascade
+CASCADE_STEPS = 3        # steps of each stage of the cascade (and one val step)
+CASCADE_AUG_REPS = 5     # timed augmentations of one batch, each setting
+CASCADE_CHECK_CROP = (32, 64, 64)   # the card-against-CPU morphology's volume
+
+
+def cascade_augmentation(trainer):
+    """The cascaded stage's augmentation of one batch of its plan, timed
+    apart from the step with CUDA events (the median of CASCADE_AUG_REPS
+    calls after one warm-up): as configured (the noise's gates drawn, p=0.4
+    and 0.2 a sample), with both gates open, and without the cascade move;
+    then the morphology and the component removal of that batch's one-hot
+    channels (a CASCADE_CHECK_CROP crop of each, every operation in turn,
+    given radii and seed voxels) on the card against the same functions on
+    the CPU, bit for bit."""
+    import numpy as np
+    import torch
+    from nnuzoo_tpu_torch.data import augment as aug
+
+    data, seg = seeded_batch(trainer,
+                             batch_size=trainer.configuration_manager.batch_size)
+    cfg = trainer.train_aug_cfg
+    settings = {"as_configured": cfg,
+                "gates_open": replace(cfg, p_cascade_binary_op=1.0,
+                                      p_cascade_remove_component=1.0),
+                "no_cascade": replace(cfg, is_cascaded=False)}
+    ms = {}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        for name, setting in settings.items():
+            aug.augment_train_batch(setting, gen, data, seg)
+            times = []
+            for _ in range(CASCADE_AUG_REPS):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+                start.record()
+                aug.augment_train_batch(setting, gen, data, seg)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            ms[name] = float(np.median(times))
+
+    # the card against the CPU, bit for bit, on a crop of the batch's one-hot
+    # around the median foreground voxel of the first sample
+    centre = (seg[0, 1] > 0).nonzero().median(0).values.tolist()
+    crop = []
+    for m, c, n in zip(centre, CASCADE_CHECK_CROP, seg.shape[2:]):
+        low = max(0, min(m - c // 2, n - c))
+        crop.append(slice(low, low + c))
+    crop = tuple(crop)
+    prev = seg[(slice(None), 1) + crop]
+    onehot = torch.stack([prev == label for label in cfg.foreground_labels],
+                         dim=1).float()
+    B, F = onehot.shape[:2]
+    cpu = torch.Generator().manual_seed(5)
+    perm = torch.rand((B, F), generator=cpu).argsort(1)
+    op = torch.arange(B * F).reshape(B, F) % 4          # every operation
+    radius = 1.0 + (cfg.cascade_strel_max - 1.0) * torch.rand((B, F), generator=cpu)
+    checks = {}
+    with torch.no_grad():
+        on_card = aug.binary_operations_apply(onehot, perm.cuda(), op.cuda(),
+                                              radius.cuda(), cfg.cascade_strel_max)
+        on_cpu = aug.binary_operations_apply(onehot.cpu(), perm, op, radius,
+                                             cfg.cascade_strel_max)
+        checks["morphology_equal"] = bool(torch.equal(on_card.cpu(), on_cpu))
+        flat = on_cpu.flatten(0, 1)
+        seeds = aug.draw_seed_voxels(cpu, flat)
+        removed_card = aug.remove_component_apply(flat.cuda(), seeds.cuda())
+        removed_cpu = aug.remove_component_apply(flat, seeds)
+        checks["component_removal_equal"] = bool(torch.equal(removed_card.cpu(),
+                                                             removed_cpu))
+    checks.update(crop=list(onehot.shape[2:]), radii=radius.flatten().tolist(),
+                  operations=op.flatten().tolist(),
+                  foreground_voxels=float(onehot.sum()),
+                  changed_by_morphology=float((on_cpu != onehot.cpu()).sum()),
+                  removed_voxels=float((flat - removed_cpu).sum()))
+    return ms, list(data.shape), list(seg.shape), checks
+
+
+def phase_cascade(card):
+    """The nnU-Net cascade on phase 14's raw dataset, after phase 19 has
+    planned and preprocessed its 3d_fullres with the default planner:
+    ``add_lowres_and_cascade`` adds ``3d_lowres`` (spacing doubled, the
+    fullres patch and widths) and ``3d_cascade_fullres``; the command line's
+    ``preprocess -c 3d_lowres``; ``train <id> 3d_lowres all`` (the default
+    trainer, PlainConvUNet, CASCADE_STEPS steps and one validation step),
+    whose final validation predicts every training case and writes
+    ``predicted_next_stage/3d_cascade_fullres/``; ``train <id>
+    3d_cascade_fullres 0`` with the cascade augmentation on the card and its
+    final validation on previous-stage input; ``predict`` of the test images
+    with 3d_lowres, then with 3d_cascade_fullres on ``-prev_stage_predictions``,
+    and ``evaluate_folder`` against the labels. The cascaded stage's
+    augmentation is timed apart from the step and its morphology and
+    component removal held to the CPU's (``cascade_augmentation``). Returns
+    the K1-K4 launches of the phase, which must be none."""
+    import numpy as np
+    import torch
+    from nnuzoo_tpu_torch.cli.entry_points import main as cli
+    from nnuzoo_tpu_torch.planning.plans_editing import add_lowres_and_cascade
+    from nnuzoo_tpu_torch.training import trainer_config
+    from nnuzoo_tpu_torch.training.trainer import Trainer
+
+    raw = os.path.join(os.environ["nnUNet_raw"], RAW_NAME)
+    pp = os.path.join(os.environ["nnUNet_preprocessed"], RAW_NAME)
+    res = os.environ["nnUNet_results"]
+    plans = add_lowres_and_cascade(RAW_ID)
+    t0 = time.perf_counter()
+    cli(["preprocess", "-d", str(RAW_ID), "-c", "3d_lowres", "-np", "4"])
+    lowres_preprocess_s = time.perf_counter() - t0
+
+    steps = []
+    peak = {}
+    inner = Trainer.train_step
+
+    def observed_step(self, data, seg):
+        torch.cuda.synchronize()
+        before = scan_launches()
+        t0 = time.perf_counter()
+        loss = inner(self, data, seg)
+        torch.cuda.synchronize()
+        steps.append(dict(seconds=time.perf_counter() - t0, loss=loss.item(),
+                          scan_launches=scan_launches() - before,
+                          data=list(data.shape), seg=list(seg.shape)))
+        peak[self.configuration_name] = torch.cuda.max_memory_allocated()
+        return loss
+
+    base = trainer_config.TRAINER_CONFIGS[CNN]
+    trainer_config.TRAINER_CONFIGS[CNN] = replace(
+        base, num_epochs=1, num_iterations_per_epoch=CASCADE_STEPS,
+        num_val_iterations_per_epoch=1)
+    Trainer.train_step = observed_step
+    reset_scan_launches()
+    stages = {}
+    try:
+        for configuration, fold in (("3d_lowres", "all"),
+                                    ("3d_cascade_fullres", "0")):
+            steps.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = cli(["train", str(RAW_ID), configuration, fold,
+                           "-device", "cuda"])
+            torch.cuda.synchronize()
+            summary = json.load(open(os.path.join(
+                trainer.output_folder, "validation", "summary.json")))
+            cm = trainer.configuration_manager
+            stages[configuration] = dict(
+                fold=fold, patch=list(cm.patch_size), batch=cm.batch_size,
+                spacing=list(cm.spacing), input_channels=trainer.num_input_channels,
+                parameters=sum(p.numel() for p in trainer.model.parameters()),
+                steps=list(steps),
+                seconds_per_step_after_first=float(np.mean(
+                    [s["seconds"] for s in steps[1:]])),
+                peak_memory_bytes_training=peak[configuration],
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                train_and_validation_s=time.perf_counter() - t0,
+                validation_cases=trainer.validation_case_times,
+                validation_dice=summary["foreground_mean"]["Dice"])
+            if configuration == "3d_cascade_fullres":
+                aug_ms, data_shape, seg_shape, checks = \
+                    cascade_augmentation(trainer)
+            model_folder = trainer.output_folder_base
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        Trainer.train_step = inner
+        trainer_config.TRAINER_CONFIGS[CNN] = base
+    next_stage = os.path.join(pp, "predicted_next_stage", "3d_cascade_fullres")
+    exported = sorted(f for f in os.listdir(next_stage) if f.endswith(".npz"))
+    export_s = [c["next_stage_s"] for c in
+                stages["3d_lowres"]["validation_cases"].values()]
+
+    predicted = {}
+    for configuration, fold, extra in (
+            ("3d_lowres", "all", []),
+            ("3d_cascade_fullres", "0",
+             ["-prev_stage_predictions", os.path.join(res, "cascade_3d_lowres")])):
+        out_folder = os.path.join(res, f"cascade_{configuration}")
+        t0 = time.perf_counter()
+        predictor = cli(["predict", "-i", os.path.join(raw, "imagesTs"),
+                         "-o", out_folder, "-d", str(RAW_ID), "-c", configuration,
+                         "-f", fold, "-device", "cuda"] + extra)
+        torch.cuda.synchronize()
+        predicted[configuration] = dict(seconds=time.perf_counter() - t0,
+                                        forwards=predictor.forward_count,
+                                        cases=predictor.case_times)
+        del predictor
+        torch.cuda.empty_cache()
+    scores = cli(["evaluate_folder", os.path.join(raw, "labelsTs"),
+                  os.path.join(res, "cascade_3d_cascade_fullres"),
+                  "-djfile", os.path.join(model_folder, "dataset.json"),
+                  "-pfile", os.path.join(model_folder, "plans.json"), "-np", "2"])
+    launches = scan_launches()
+    cascade_step = stages["3d_cascade_fullres"]["seconds_per_step_after_first"]
+    emit("cascade", card=card, dataset=RAW_NAME,
+         configurations={k: {n: v.get(n) for n in ("spacing", "patch_size",
+                                                   "batch_size", "next_stage",
+                                                   "previous_stage",
+                                                   "inherits_from")}
+                         for k, v in plans["configurations"].items()},
+         lowres_preprocess_s=lowres_preprocess_s, stages=stages,
+         predicted_next_stage_files=len(exported),
+         next_stage_export_s_per_case=export_s,
+         augmentation_ms=aug_ms, augmentation_batch=[data_shape, seg_shape],
+         cascade_augmentation_ms=aug_ms["as_configured"] - aug_ms["no_cascade"],
+         augmentation_share_of_step=aug_ms["as_configured"] / 1e3 / cascade_step,
+         card_against_cpu=checks, predict=predicted,
+         test_cases=len(scores["metric_per_case"]),
+         foreground_dice=scores["foreground_mean"]["Dice"],
+         dice_per_label={str(k): v["Dice"] for k, v in scores["mean"].items()},
+         scan_launches=launches)
+    if launches or not (checks["morphology_equal"]
+                        and checks["component_removal_equal"]
+                        and checks["changed_by_morphology"] > 0):
+        raise AssertionError(f"cascade: {launches} scan launches, {checks}")
+    if len(exported) != 3 or stages["3d_cascade_fullres"]["input_channels"] != 3:
+        raise AssertionError(f"cascade: next-stage files {exported}, {stages}")
+    for configuration, stage in stages.items():
+        if len(stage["steps"]) != CASCADE_STEPS or not all(
+                np.isfinite(s["loss"]) for s in stage["steps"]) or \
+                not np.isfinite(stage["validation_dice"]):
+            raise AssertionError(f"cascade, {configuration}: {stage}")
+    if stages["3d_cascade_fullres"]["steps"][0]["seg"][1] != 2 or \
+            len(scores["metric_per_case"]) != 2 or \
+            not np.isfinite(scores["foreground_mean"]["Dice"]):
+        raise AssertionError(f"cascade: {stages}, {scores['foreground_mean']}")
+    return launches
+
+
+# ----------------------------------------------------------------- translation
+def phase_translation(card):
+    """The translation target: a seeded preprocessed 2d dataset of float
+    targets at phase 5's shapes (``write_dataset``, 2 * image + 10),
+    ``target_type: "translation"`` with one regression channel;
+    ``nnUNetTrainerM2NetP`` at full width and depth trains on it through
+    ``run_training`` (TRAIN_STEPS steps at batch 12 and one validation step,
+    80 K1 and 80 K2 launches a step: ``phase_training``); its final
+    validation scored with the regression metrics and ``evaluate_folder`` on
+    the same folders; then one step at stage layers (1, 1, 1, 1) against
+    fp64 on the batches of SHALLOW_SEEDS, held to phase 6's ratio rule (the
+    median of the kernel path's gradient error over the fp32 plain path's
+    within ``kernel_over_plain``). Returns the K1 and K2 launches of the
+    training run."""
+    import numpy as np
+    from nnuzoo_tpu_torch.cli.entry_points import main as cli
+    from nnuzoo_tpu_torch.models.registry import get_model_builder
+
+    trainer, launches, _ = phase_training(False, target_type="translation")
+    t0 = time.perf_counter()
+    metrics = trainer.perform_actual_validation()
+    validation_s = time.perf_counter() - t0
+    validation = os.path.join(trainer.output_folder, "validation")
+    scored = cli(["evaluate_folder", os.path.join(
+        trainer.preprocessed_dataset_folder_base, "gt_segmentations"), validation,
+        "-djfile", os.path.join(trainer.output_folder_base, "dataset.json"),
+        "-pfile", os.path.join(trainer.output_folder_base, "plans.json"),
+        "-o", os.path.join(validation, "evaluate_folder.json"), "-np", "2"])
+
+    model = get_model_builder(trainer.trainer_name)(
+        trainer.plans_manager, trainer.dataset_json, trainer.configuration_manager,
+        trainer.num_input_channels, True, device="cuda", seed=STEP_SEED,
+        stage_layers=(1, 1, 1, 1))
+    ratios = []
+    for seed in SHALLOW_SEEDS:
+        readings, reference = step_readings(
+            trainer, model, *augmented(trainer, *seeded_batch(trainer, seed)))
+        ratios.append(readings["kernel"]["grad_err_norm"]
+                      / readings["plain_fp32"]["grad_err_norm"])
+        emit("translation_step_agreement", depth="stage_layers_1_1_1_1",
+             batch=STEP_BATCH, seed=STEP_SEED, sampler_seed=seed,
+             kernel_over_plain=ratios[-1], **reference, **readings)
+        if not all(r["finite"] for r in readings.values()):
+            raise AssertionError(f"translation step, seed {seed}: {readings}")
+    del model
+    median = float(np.median(ratios))
+    limit = SHALLOW_STEP_LIMITS["kernel_over_plain"]
+    emit("translation", card=card, heads=trainer.label_manager.num_segmentation_heads,
+         fwd_launches=launches[0], bwd_launches=launches[1],
+         validation_s=validation_s, validation_cases=trainer.validation_case_times,
+         regression_metrics=metrics["mean"], evaluate_folder=scored["mean"],
+         kernel_over_plain=ratios, median_kernel_over_plain=median, limit=limit)
+    if not median <= limit:
+        raise AssertionError(f"translation step at stage layers (1, 1, 1, 1): "
+                             f"median kernel-over-plain {median} over {ratios}")
+    if trainer.label_manager.num_segmentation_heads != 1 or \
+            not all(np.isfinite(v) for v in metrics["mean"].values()) or \
+            scored["mean"] != metrics["mean"]:
+        raise AssertionError(f"translation metrics {metrics['mean']}, "
+                             f"{scored['mean']}")
+    return launches
+
+
 SWIN_UMAMBA = "nnUNetTrainerSwinUMamba"
 SWIN_UMAMBA_D = "nnUNetTrainerSwinUMambaD"
 LIGHT_MUNET = "nnUNetTrainerLightMUNet"
@@ -2605,6 +2937,17 @@ def main():
         torch.cuda.empty_cache()
         # the same raw dataset at 3d: PlainConvUNet and ResidualEncoderUNet
         cnn = {"planned_3d": phase_planned_3d(card)}
+        torch.cuda.empty_cache()
+        # and the cascade on its 3d_fullres plan: 3d_lowres, the next-stage
+        # export, 3d_cascade_fullres with the cascade augmentation
+        cnn["cascade"] = phase_cascade(card)
+    torch.cuda.empty_cache()
+
+    # the translation target: M2NetP at full width on float targets
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
+        os.environ["nnUNet_results"] = os.path.join(tmp, "results")
+        translation_launches = phase_translation(card)
     torch.cuda.empty_cache()
 
     # the nnU-Net CNN baselines at full width, whose paths launch no scan
@@ -2657,7 +3000,8 @@ def main():
                                        "training": fwd_launches,
                                        "validation": validation_launches,
                                        "predict_from_files": files_launches,
-                                       "planned_dataset": planned_fwd_launches},
+                                       "planned_dataset": planned_fwd_launches,
+                                       "translation": translation_launches[0]},
                      serving_forward_ms=sum(
                          weight[r["L"]] * r["ms"]
                          for r in on_path(fwd_rows, weight, TILE_BATCH, KD=KD)),
@@ -2676,7 +3020,8 @@ def main():
                      bwd_rows, on_path(bwd_rows, weight, TRAIN_BATCH, KD=KD),
                      weight, per,
                      launches_by_path={"training": bwd_launches,
-                                       "planned_dataset": planned_bwd_launches},
+                                       "planned_dataset": planned_bwd_launches,
+                                       "translation": translation_launches[1]},
                      m2net=m2net_entry(
                          bwd_rows, m2_bwd_rows, M2NET_SCANS,
                          lambda r: (r["L"], r["KD"]), m2_per,
@@ -2726,7 +3071,8 @@ def main():
     if min(serving_launches, fwd_launches, bwd_launches, validation_launches,
            files_launches, fused_serving_launches, k3_launches, k4_launches,
            fused_validation_launches, fused_files_launches,
-           planned_fwd_launches, planned_bwd_launches, m2["serving"],
+           planned_fwd_launches, planned_bwd_launches, *translation_launches,
+           m2["serving"],
            *m2["training"], *m2["finetune"], m2["remat"], m2["serving_fused"],
            *m2["training_fused"], m2["remat_fused"],
            *(n for v in mamba.values()

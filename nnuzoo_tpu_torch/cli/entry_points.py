@@ -116,7 +116,7 @@ def train_entry(argv=None):
     if a.num_gpus != 1:
         p.error("nnuzoo_tpu_torch trains on one device (-num_gpus 1)")
     from ..run.run_training import run_training
-    run_training(a.dataset_name_or_id, a.configuration, a.fold, a.tr, a.p,
+    return run_training(a.dataset_name_or_id, a.configuration, a.fold, a.tr, a.p,
                  num_epochs=a.num_epochs, continue_training=a.continue_training,
                  only_run_validation=a.val, validate_with_best=a.val_best,
                  skip_validation=a.skip_val,
@@ -176,21 +176,24 @@ def evaluate_folder_entry(argv=None):
     p.add_argument("--chill", action="store_true")
     a = p.parse_args(argv)
 
-    from ..evaluation.metrics import compute_metrics_on_folder
+    from ..evaluation.metrics import (compute_metrics_on_folder,
+                                      compute_metrics_on_folder_reg)
     from ..plans.plans_handler import PlansManager
     from ..utilities.io import join, load_json
     dataset_json = load_json(a.djfile)
-    if dataset_json.get("target_type", "segmentation") != "segmentation":
-        raise NotImplementedError("the regression metrics of the translation "
-                                  "target are not in nnuzoo_tpu_torch yet")
     plans_manager = PlansManager(load_json(a.pfile))
+    rw = plans_manager.image_reader_writer_class()
     out_file = a.o if a.o else join(a.pred_folder, "summary.json")
-    lm = plans_manager.get_label_manager(dataset_json)
-    metrics = compute_metrics_on_folder(
-        a.gt_folder, a.pred_folder, out_file,
-        plans_manager.image_reader_writer_class(), dataset_json["file_ending"],
-        lm.foreground_regions if lm.has_regions else lm.foreground_labels,
-        lm.ignore_label, a.np, chill=True)
+    if dataset_json.get("target_type", "segmentation") == "translation":
+        metrics = compute_metrics_on_folder_reg(
+            a.gt_folder, a.pred_folder, out_file, rw, dataset_json["file_ending"],
+            a.np)
+    else:
+        lm = plans_manager.get_label_manager(dataset_json)
+        metrics = compute_metrics_on_folder(
+            a.gt_folder, a.pred_folder, out_file, rw, dataset_json["file_ending"],
+            lm.foreground_regions if lm.has_regions else lm.foreground_labels,
+            lm.ignore_label, a.np, chill=True)
     print(f"summary written to {out_file}")
     return metrics
 

@@ -15,12 +15,19 @@ hold against the JAX functions (the two packages' random streams differ).
 Random gates select between the transformed and the untouched sample with
 ``torch.where``, so nothing synchronises with the host.
 
-Not ported yet: the cascade part (moving the previous stage's segmentation
-into the data, with its noise) and translation targets; a configuration that
-asks for either raises ``NotImplementedError``.
+A cascaded configuration moves the previous stage's segmentation (seg
+channel 1) into the data as one-hot input channels, one per foreground label;
+on the training path these channels are noised first: a random ball
+morphology (dilate, erode, close or open) on every channel in a random order
+with p=0.4 a sample, then the removal of a random connected component with
+p=0.2 a sample. A translation target is a float image: the spatial transform
+samples it linearly with fill 0, no label transform touches it, and its
+deep-supervision targets come from an antialiased linear resize (JAX's
+``jax.image.resize(..., "linear")``).
 """
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import numpy as np
@@ -78,8 +85,7 @@ def get_patch_size(final_patch_size, rot_x, rot_y, rot_z, scale_range) -> np.nda
 # --------------------------------------------------------------------- config
 @dataclass(frozen=True)
 class AugmentConfig:
-    """Static augmentation configuration (the JAX package's fields, without
-    the cascade noise's, which is not ported)."""
+    """Static augmentation configuration (the JAX package's fields)."""
     patch_size: Tuple[int, ...]              # final patch size fed to the network
     initial_patch_size: Tuple[int, ...]      # inflated sampling patch size
     rotation: float                          # max |angle| in radians
@@ -91,22 +97,19 @@ class AugmentConfig:
     p_rotation: float = 0.2
     p_scaling: float = 0.2
     scale_range: Tuple[float, float] = (0.7, 1.4)
-    is_cascaded: bool = False                # not ported: raises
-    target_type: str = "segmentation"        # 'translation' is not ported: raises
+    # cascade: seg channel 1 is the previous stage's segmentation, moved into
+    # the data as one-hot foreground channels and, when training, noised
+    is_cascaded: bool = False
+    p_cascade_binary_op: float = 0.4
+    p_cascade_remove_component: float = 0.2
+    cascade_strel_max: int = 8
+    foreground_labels: Tuple[int, ...] = ()
+    # 'segmentation' (integer labels) or 'translation' (a float target)
+    target_type: str = "segmentation"
 
     @property
     def dim(self):
         return len(self.patch_size)
-
-
-def _check_ported(cfg: AugmentConfig):
-    if cfg.is_cascaded:
-        raise NotImplementedError(
-            "cascade augmentation (previous-stage segmentation as one-hot input "
-            "channels, with its noise) is not in nnuzoo_tpu_torch yet")
-    if cfg.target_type != "segmentation":
-        raise NotImplementedError(
-            f"target_type {cfg.target_type!r} is not in nnuzoo_tpu_torch yet")
 
 
 # --------------------------------------------------------------------- random draws
@@ -225,14 +228,17 @@ def _spatial_matrix(cfg: AugmentConfig, gen, batch: int):
 def _spatial_transform(cfg: AugmentConfig, gen, data, seg):
     """Rotation + scale crop from the initial to the final patch size: data
     (B, C, *ips) linear with fill 0, seg (B, S, *ips) or None nearest with
-    fill -1 (returned as float32)."""
+    fill -1, or for a translation target linear with fill 0 (returned as
+    float32)."""
     matrix = _spatial_matrix(cfg, gen, data.shape[0])
     out = _affine_sample(data, matrix, cfg.initial_patch_size, cfg.patch_size,
                          order=1, fill=0.0)
     seg_out = None
     if seg is not None:
+        translation = cfg.target_type == "translation"
         seg_out = _affine_sample(seg.float(), matrix, cfg.initial_patch_size,
-                                 cfg.patch_size, order=0, fill=-1.0)
+                                 cfg.patch_size, order=1 if translation else 0,
+                                 fill=0.0 if translation else -1.0)
     return out, seg_out
 
 
@@ -405,13 +411,49 @@ def convert_seg_to_regions(seg, regions, ignore_label=None):
     return torch.stack(masks, dim=1).to(seg.dtype)
 
 
+@lru_cache(maxsize=None)
+def linear_resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """(in_size, out_size) float32 weights of ``jax.image.resize(...,
+    "linear")`` along one axis: a triangle kernel, widened by 1/scale when
+    shrinking (antialiasing, JAX's default), normalised per output sample,
+    zero for a sample outside the input (the scale-and-translate form)."""
+    inv_scale = np.float32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale \
+        - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+def linear_resize(x, out_shape):
+    """Antialiased linear resize of (B, C, *spatial) to (B, C, *out_shape),
+    as ``jax.image.resize(..., "linear")``: one small matmul per axis whose
+    size changes."""
+    for ax, (n, m) in enumerate(zip(x.shape[2:], out_shape)):
+        if n == m:
+            continue
+        w = torch.as_tensor(linear_resize_weights(n, m), device=x.device)
+        x = torch.tensordot(x, w.to(x.dtype), dims=([ax + 2], [0])).movedim(-1, ax + 2)
+    return x
+
+
 def make_seg_targets(cfg: AugmentConfig, seg):
     """RemoveLabel(-1 -> 0), region conversion, deep-supervision downsampling:
-    one (B, S', *scaled patch) target per scale."""
-    _check_ported(cfg)
-    seg = torch.where(seg == -1, torch.zeros_like(seg), seg)
-    if cfg.regions is not None:
-        seg = convert_seg_to_regions(seg, cfg.regions, None)
+    one (B, S', *scaled patch) target per scale. A translation target skips
+    the label transforms and is resized linearly."""
+    translation = cfg.target_type == "translation"
+    if translation:
+        seg = seg.float()
+    else:
+        seg = torch.where(seg == -1, torch.zeros_like(seg), seg)
+        if cfg.regions is not None:
+            seg = convert_seg_to_regions(seg, cfg.regions, None)
     if cfg.deep_supervision_scales is None:
         return [seg]
     targets = []
@@ -420,16 +462,163 @@ def make_seg_targets(cfg: AugmentConfig, seg):
             targets.append(seg)
         else:
             out_shape = [int(round(n * s)) for n, s in zip(cfg.patch_size, scale)]
-            targets.append(_nearest_downsample(seg, out_shape))
+            targets.append(linear_resize(seg, out_shape) if translation
+                           else _nearest_downsample(seg, out_shape))
     return targets
+
+
+# --------------------------------------------------------------------- cascade
+def _cascade_move(cfg: AugmentConfig, data, seg, gen=None):
+    """Move the previous stage's segmentation (seg channel 1) into the data as
+    one one-hot channel per foreground label, leaving seg channel 0 as the
+    target; with a generator (the training path) noise the one-hot channels
+    first."""
+    if not cfg.is_cascaded or seg is None:
+        return data, seg
+    prev = seg[:, 1]
+    onehot = torch.stack([prev == label for label in cfg.foreground_labels],
+                         dim=1).to(data.dtype)
+    if gen is not None:
+        onehot = cascade_onehot_noise(cfg, gen, onehot)
+    return torch.cat([data, onehot], dim=1), seg[:, 0:1]
+
+
+@lru_cache(maxsize=None)
+def _ball_distances(radius_max: int, dim: int) -> np.ndarray:
+    coords = np.stack(np.meshgrid(
+        *([np.arange(-radius_max, radius_max + 1)] * dim), indexing="ij"))
+    return np.sqrt((coords.astype(np.float64) ** 2).sum(0)).astype(np.float32)
+
+
+def ball_mask(radius, radius_max: int, dim: int):
+    """radius (N,) -> (N, (2*radius_max+1)^dim) 0/1 float32 ball footprints,
+    a voxel inside where its distance from the centre is at most the
+    radius."""
+    dist = torch.as_tensor(_ball_distances(radius_max, dim), device=radius.device)
+    return (dist <= radius.float().reshape((-1,) + (1,) * dim)).float()
+
+
+def _binary_conv(x, kernels):
+    """SAME correlation of each 0/1 volume of x (N, *spatial) with its own
+    0/1 kernel (N, *k): the count of neighbours under the footprint (exact in
+    fp32, at most (2*radius_max+1)^dim)."""
+    conv = {2: torch.nn.functional.conv2d, 3: torch.nn.functional.conv3d}[x.dim() - 1]
+    return conv(x[None], kernels[:, None], padding=kernels.shape[-1] // 2,
+                groups=x.shape[0])[0]
+
+
+def binary_operation_apply(x, op, radius, radius_max: int):
+    """One binary morphology per 0/1 volume of x (N, *spatial) with a ball of
+    the given radius (N,): op (N,) 0 dilate, 1 erode, 2 close, 3 open. Two
+    convolutions for all four: a voxel's count of neighbours under the ball
+    gives both its dilation (> 0) and its erosion (= the ball's size); the
+    second count, of the dilation (close) or the erosion (open), gives the
+    second step."""
+    dim = x.dim() - 1
+    kernels = ball_mask(radius, radius_max, dim)
+    full = kernels.flatten(1).sum(1).reshape((-1,) + (1,) * dim)
+
+    def dilate_erode(v):
+        counts = _binary_conv(v, kernels)
+        return (counts > 0.5).to(x.dtype), (counts > full - 0.5).to(x.dtype)
+
+    dilated, eroded = dilate_erode(x)
+    closing = (op == 2).reshape((-1,) + (1,) * dim)
+    then_dilated, then_eroded = dilate_erode(torch.where(closing, dilated, eroded))
+    return torch.stack([dilated, eroded, then_eroded, then_dilated], dim=1)[
+        torch.arange(x.shape[0], device=x.device), op]
+
+
+def binary_operations_apply(onehot, perm, op, radius, radius_max: int):
+    """The morphology of each sample's one-hot channels (B, F, *spatial) in
+    the order perm (B, F); step j applies op[:, j] with radius[:, j] to
+    channel perm[:, j]. A channel left empty by the steps before is skipped;
+    the voxels a channel gains are cleared from every other channel."""
+    rows = torch.arange(onehot.shape[0], device=onehot.device)
+    for j in range(onehot.shape[1]):
+        channel = perm[:, j]
+        workon = onehot[rows, channel]
+        res = binary_operation_apply(workon, op[:, j], radius[:, j], radius_max)
+        res = _gate(workon.flatten(1).sum(1) > 0, res, workon)
+        added = (res - workon > 0).to(onehot.dtype)
+        onehot = onehot * (1.0 - added[:, None])
+        onehot[rows, channel] = res
+    return onehot
+
+
+def draw_seed_voxels(gen, x):
+    """A uniform random foreground voxel (flat index) of each volume of x
+    (N, *spatial); any voxel for a volume without foreground."""
+    flat = x.flatten(1)
+    u = torch.rand(flat.shape, generator=gen, device=gen.device)
+    return torch.where(flat > 0, u, torch.full_like(u, -1.0)).argmax(1)
+
+
+def remove_component_apply(x, seed, max_frac: float = 0.15, check_every: int = 8):
+    """Remove from each 0/1 volume of x (N, *spatial) the connected component
+    (3^dim neighbourhood) of the voxel at flat index seed (N,) if it covers
+    less than ``max_frac`` of the volume. The component grows from the seed
+    by 0/1 box dilations (a 3^dim max pool) masked by the volume, for every
+    volume at once, until it stops changing: exact, however long its
+    geodesic radius. The host looks every ``check_every`` dilations."""
+    n = x.shape[0]
+    pool = {2: torch.nn.functional.max_pool2d,
+            3: torch.nn.functional.max_pool3d}[x.dim() - 1]
+    comp = torch.zeros_like(x).flatten(1)
+    comp[torch.arange(n, device=x.device), seed] = 1.0
+    comp = torch.minimum(comp.reshape(x.shape), x)   # no foreground: stays empty
+    while True:
+        before = comp
+        for _ in range(check_every):
+            comp = torch.minimum(pool(comp[:, None], 3, 1, 1)[:, 0], x)
+        if torch.equal(comp, before):
+            break
+    small = comp.flatten(1).sum(1) < max_frac * x[0].numel()
+    has_fg = x.flatten(1).sum(1) > 0
+    return _gate(has_fg & small, x * (1.0 - comp), x)
+
+
+def cascade_onehot_noise(cfg: AugmentConfig, gen, onehot):
+    """The training path's noise on the previous stage's one-hot channels
+    (B, F, *spatial): with p=``p_cascade_binary_op`` a sample, a random
+    dilate, erode, close or open with a ball of radius U(1, strel_max) on
+    every channel in a random order; then with
+    p=``p_cascade_remove_component`` a sample, the removal of the component
+    of a random foreground voxel from every channel. The gates, orders,
+    operations and radii are drawn first and the seed voxels after the
+    morphology, for every sample; the morphology and the removal then run
+    only on the samples whose gate is open (the host reads the gates)."""
+    B, F = onehot.shape[:2]
+    dev = gen.device
+    do_op = _bernoulli(gen, (B,), cfg.p_cascade_binary_op)
+    perm = torch.rand((B, F), generator=gen, device=dev).argsort(1)
+    op = torch.randint(0, 4, (B, F), generator=gen, device=dev)
+    radius = _uniform(gen, (B, F), 1.0, float(cfg.cascade_strel_max))
+    do_cc = _bernoulli(gen, (B,), cfg.p_cascade_remove_component)
+
+    picked = do_op.nonzero()[:, 0]
+    if picked.numel():
+        onehot = onehot.clone()
+        onehot[picked] = binary_operations_apply(
+            onehot[picked], perm[picked], op[picked], radius[picked],
+            cfg.cascade_strel_max)
+    # the seed voxels come from the channels after the morphology
+    seed = draw_seed_voxels(gen, onehot.flatten(0, 1)).reshape(B, F)
+    picked = do_cc.nonzero()[:, 0]
+    if picked.numel():
+        sub = onehot[picked]
+        onehot = onehot.clone()
+        onehot[picked] = remove_component_apply(
+            sub.flatten(0, 1), seed[picked].flatten()).reshape(sub.shape)
+    return onehot
 
 
 # --------------------------------------------------------------------- entry points
 def augment_train_batch(cfg: AugmentConfig, gen: torch.Generator, data, seg):
-    """data (B, C, *initial_patch), seg (B, S, *initial_patch) int16 or None,
-    both on ``gen``'s device. Returns (data (B, C, *patch), [seg targets
-    (B, S', *scaled_patch) float32] or None)."""
-    _check_ported(cfg)
+    """data (B, C, *initial_patch), seg (B, S, *initial_patch) int16 (float32
+    for a translation target) or None, both on ``gen``'s device. Returns (data
+    (B, C (+ F for a cascade), *patch), [seg targets (B, S', *scaled_patch)
+    float32] or None)."""
     data = data.float()
     data, seg = _spatial_transform(cfg, gen, data, seg)
     data = _intensity_chain(cfg, gen, data)
@@ -442,12 +631,13 @@ def augment_train_batch(cfg: AugmentConfig, gen: torch.Generator, data, seg):
                  for c in range(data.shape[1])]
         data = torch.stack(chans, dim=1)
 
+    data, seg = _cascade_move(cfg, data, seg, gen)
     targets = make_seg_targets(cfg, seg) if seg is not None else None
     return data, targets
 
 
 def prepare_val_batch(cfg: AugmentConfig, data, seg):
-    """Validation: no augmentation, only RemoveLabel, regions and the
-    deep-supervision downsampling."""
-    _check_ported(cfg)
-    return data.float(), make_seg_targets(cfg, seg)
+    """Validation: no augmentation, only the cascade move (without noise),
+    RemoveLabel, regions and the deep-supervision downsampling."""
+    data, seg = _cascade_move(cfg, data.float(), seg)
+    return data, make_seg_targets(cfg, seg)

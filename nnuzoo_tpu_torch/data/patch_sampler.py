@@ -165,7 +165,9 @@ class PatchSampler:
                 pad = 0 if self.target_type == "translation" else -1
                 seg_c = crop_and_pad_nd(np.asarray(seg), bbox, pad)
                 if seg_prev is not None:
-                    sp = np.asarray(seg_prev)
+                    # the previous stage's uint8 labels, signed so that the
+                    # padding is -1 (numpy refuses -1 in a uint8 array)
+                    sp = np.asarray(seg_prev).astype(np.int16)
                     if sp.ndim == len(bbox):  # stored without channel axis
                         sp = sp[None]
                     seg_c = np.vstack((seg_c, crop_and_pad_nd(sp, bbox, -1)))

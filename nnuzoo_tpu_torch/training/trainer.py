@@ -15,7 +15,13 @@ augmentation each have their own.
 
 The final validation (``perform_actual_validation``) predicts the fold's
 validation cases with the port's ``Predictor``, writes them through the plans'
-writer and scores them against ``gt_segmentations``.
+writer and scores them against ``gt_segmentations``. A cascade's first stage
+(a configuration with a next stage, ``3d_lowres``) also writes each case's
+prediction at the next stage's shape to ``predicted_next_stage/<next
+stage>/``; the cascaded stage (``3d_cascade_fullres``) trains and validates
+with those as one-hot input channels. A ``target_type: "translation"``
+dataset trains on the deep-supervision MSE and is scored with the
+regression metrics.
 
 The fine-tuning trainer (``freeze_encoder_epochs``) freezes the encoder as
 the JAX package does: while frozen, the encoder's gradients are zero before
@@ -23,9 +29,8 @@ the clip, the optimizer steps on every parameter (so the frozen ones' moments
 decay and their step counts advance, as optax's shared count does), and the
 frozen parameters are then put back as they were.
 
-Not ported yet, each raising ``NotImplementedError``: SSL and translation
-targets, device meshes and multi-process batches, bf16, and cascaded
-configurations (with a previous or a next stage). ``load_checkpoint`` also
+Not ported yet, each raising ``NotImplementedError``: the SSL (MAE) target,
+device meshes and multi-process batches, and bf16. ``load_checkpoint`` also
 continues a fold that the JAX package trained with AdamW or SGD.
 """
 
@@ -136,10 +141,10 @@ class Trainer:
 
     def _check_ported(self):
         cfg = self.config
-        if self.target_type != "segmentation":
+        if self.target_type not in ("segmentation", "translation"):
             raise NotImplementedError(
-                f"target_type {self.target_type!r}: SSL and translation targets "
-                "are not in nnuzoo_tpu_torch yet")
+                f"target_type {self.target_type!r}: the SSL (MAE) target is not "
+                "in nnuzoo_tpu_torch yet")
         if int(os.environ.get("NNUZOO_MODEL_PARALLEL", cfg.model_parallel)) > 1:
             raise NotImplementedError(
                 "device meshes are not in nnuzoo_tpu_torch yet: it trains on one "
@@ -152,14 +157,6 @@ class Trainer:
         if env_bf16 == "1" or (env_bf16 != "0" and cfg.use_bf16):
             raise NotImplementedError(
                 "bf16 training is not in nnuzoo_tpu_torch yet: it trains in fp32")
-        if self.configuration_manager.previous_stage_name is not None:
-            raise NotImplementedError(
-                "cascaded configurations are not in nnuzoo_tpu_torch yet (their "
-                "augmentation waits)")
-        if self.configuration_manager.next_stage_names:
-            raise NotImplementedError(
-                "configurations with a next stage are not in nnuzoo_tpu_torch yet: "
-                "the final validation would not write predicted_next_stage/")
 
     @property
     def dataset_class(self):
@@ -268,6 +265,7 @@ class Trainer:
                 regions = regions + [(self.label_manager.ignore_label,)]
             regions = tuple(regions)
         patch_size = tuple(int(i) for i in self.configuration_manager.patch_size)
+        is_cascaded = self.configuration_manager.previous_stage_name is not None
         common = dict(
             patch_size=patch_size,
             mirror_axes=tuple(mirror_axes),
@@ -277,6 +275,10 @@ class Trainer:
             deep_supervision_scales=ds_scales,
             regions=regions,
             rotation=float(rotation),
+            is_cascaded=is_cascaded,
+            foreground_labels=tuple(int(label) for label in
+                                    self.label_manager.foreground_labels)
+            if is_cascaded else (),
             target_type=self.target_type,
         )
         train_cfg = AugmentConfig(initial_patch_size=initial_patch_size, **common)
@@ -350,7 +352,9 @@ class Trainer:
         def to_cf(o):  # channels-last -> channels-first for the loss functions
             return o.movedim(-1, 1)
 
-        if self.label_manager.has_regions:
+        if self.target_type == "translation":
+            fn = lambda o, t: torch.mean((to_cf(o) - t.float()) ** 2)
+        elif self.label_manager.has_regions:
             fn = lambda o, t: dice_bce_loss(
                 to_cf(o), t, batch_dice=batch_dice,
                 use_ignore_label=ignore_label is not None)
@@ -428,11 +432,15 @@ class Trainer:
 
     @torch.no_grad()
     def val_step(self, data: torch.Tensor, seg: torch.Tensor):
-        """(loss, tp, fp, fn) of one validation batch."""
+        """(loss, tp, fp, fn) of one validation batch; a translation target
+        has no Dice and gives zeros for tp, fp and fn."""
         data_p, targets = prepare_val_batch(self.val_aug_cfg, data, seg)
         self.model.eval()
         outputs = [o.float() for o in self.model(data_p.movedim(1, -1).contiguous())]
         loss = self._compute_loss(outputs, targets)
+        if self.target_type == "translation":
+            zero = torch.zeros(1, device=loss.device)
+            return loss, zero, zero, zero
         logits_cf = outputs[0].movedim(-1, 1)
         target0 = targets[0]
         lm = self.label_manager
@@ -482,10 +490,22 @@ class Trainer:
         return tr_keys, val_keys
 
     # ----------------------------------------------------------------- data
+    def _previous_stage_folder(self) -> Optional[str]:
+        """Where the previous stage wrote its predictions for this
+        configuration (``predicted_next_stage/<this configuration>``), or None
+        for a configuration without a previous stage."""
+        if self.configuration_manager.previous_stage_name is None:
+            return None
+        return join(self.preprocessed_dataset_folder_base, "predicted_next_stage",
+                    self.configuration_name)
+
     def get_dataloaders(self):
         tr_keys, val_keys = self.do_split()
-        ds_tr = self.dataset_class(self.preprocessed_dataset_folder, tr_keys)
-        ds_val = self.dataset_class(self.preprocessed_dataset_folder, val_keys)
+        prev = self._previous_stage_folder()
+        ds_tr = self.dataset_class(self.preprocessed_dataset_folder, tr_keys,
+                                   folder_with_segs_from_previous_stage=prev)
+        ds_val = self.dataset_class(self.preprocessed_dataset_folder, val_keys,
+                                    folder_with_segs_from_previous_stage=prev)
         dim = len(self.configuration_manager.patch_size)
         # a Trainer made with a seed samples the same patches on every run
         train_sampler = PatchSampler(
@@ -526,10 +546,15 @@ class Trainer:
             tps.append(tp)
             fps.append(fp)
             fns.append(fn)
+        mean_loss = float(torch.stack(losses).mean())
+        if self.target_type == "translation":
+            # no Dice for a regression: -loss is what the EMA of the best
+            # checkpoint follows
+            return mean_loss, np.array([-mean_loss])
         tp, fp, fn = (torch.stack(x).sum(0).double().cpu().numpy()
                       for x in (tps, fps, fns))
         global_dc_per_class = 2 * tp / np.clip(2 * tp + fp + fn, 1e-8, None)
-        return float(torch.stack(losses).mean()), global_dc_per_class
+        return mean_loss, global_dc_per_class
 
     def _run_epoch(self):
         epoch = self.current_epoch
@@ -629,15 +654,23 @@ class Trainer:
     # ----------------------------------------------------------------- final val
     def perform_actual_validation(self, save_probabilities: bool = False) -> dict:
         """Sliding-window prediction of the validation fold's cases, written
-        to ``validation/`` through the plans' writer, and the Dice summary
-        against ``gt_segmentations`` in ``validation/summary.json``
-        (reference `nnUNetTrainer.py:1354-1504`). Each case's seconds
-        (read, device, export) go to ``validation_case_times``. One process;
-        the SSL target and cascaded configurations never get here
-        (``_check_ported``)."""
-        from ..evaluation.metrics import compute_metrics_on_folder
-        from ..inference.export import export_prediction_from_logits
+        to ``validation/`` through the plans' writer, and the summary against
+        ``gt_segmentations`` in ``validation/summary.json``: Dice, or the
+        regression metrics for a translation target (reference
+        `nnUNetTrainer.py:1354-1504`). A cascaded configuration stacks the
+        previous stage's prediction onto each case one-hot. For each next
+        stage, the logits of each validation case that the next stage's
+        preprocessed folder holds are resampled to its shape and saved to
+        ``predicted_next_stage/<next stage>/<case>.npz``. Each case's seconds
+        (read, device, export, next-stage export) go to
+        ``validation_case_times``. One process; the SSL target never gets
+        here (``_check_ported``)."""
+        from ..evaluation.metrics import (compute_metrics_on_folder,
+                                          compute_metrics_on_folder_reg)
+        from ..inference.export import export_prediction_from_logits, \
+            resample_and_save
         from ..inference.predictor import Predictor
+        from ..plans.label_handling import convert_labelmap_to_one_hot
 
         predictor = Predictor(tile_step_size=0.5, use_gaussian=True,
                               use_mirroring=True, allowed_mirroring_axes=None,
@@ -654,12 +687,31 @@ class Trainer:
         validation_output_folder = join(self.output_folder, "validation")
         maybe_mkdir(validation_output_folder)
         _, val_keys = self.do_split()
-        dataset_val = self.dataset_class(self.preprocessed_dataset_folder, val_keys)
+        # the previous stage's folder is passed here too (the JAX package
+        # leaves it out, so its cascaded stage gets no one-hot channels)
+        dataset_val = self.dataset_class(
+            self.preprocessed_dataset_folder, val_keys,
+            folder_with_segs_from_previous_stage=self._previous_stage_folder())
+        next_stages = []
+        for stage in self.configuration_manager.next_stage_names or ():
+            folder = join(self.preprocessed_dataset_folder_base,
+                          "predicted_next_stage", stage)
+            maybe_mkdir(folder)
+            next_stages.append((DatasetNumpy(join(
+                self.preprocessed_dataset_folder_base,
+                self.plans_manager.get_configuration(stage).data_identifier)),
+                folder))
         self.validation_case_times = {}
         for k in val_keys:
             t0 = time.perf_counter()
-            data, _, _, properties = dataset_val.load_case(k)
+            data, _, seg_prev, properties = dataset_val.load_case(k)
             data = np.asarray(data, dtype=np.float32)
+            if seg_prev is not None:
+                seg_prev = np.asarray(seg_prev)
+                if seg_prev.ndim == data.ndim:         # stored with a channel axis
+                    seg_prev = seg_prev[0]
+                data = np.vstack([data, convert_labelmap_to_one_hot(
+                    seg_prev, self.label_manager.foreground_labels, np.float32)])
             t1 = time.perf_counter()
             logits = predictor.predict_sliding_window_return_logits(data)
             t2 = time.perf_counter()
@@ -667,16 +719,32 @@ class Trainer:
                 logits, properties, self.configuration_manager, self.plans_manager,
                 self.dataset_json, join(validation_output_folder, k),
                 save_probabilities)
+            t3 = time.perf_counter()
+            # the same case gives the same logits: they are resampled for the
+            # next stage as they are
+            for ds_next, folder in next_stages:
+                if k in ds_next.identifiers:
+                    resample_and_save(logits, ds_next.load_case(k)[0].shape[1:],
+                                      join(folder, k), self.plans_manager,
+                                      self.configuration_manager, properties,
+                                      self.dataset_json)
             self.validation_case_times[k] = {
-                "read_s": t1 - t0, "device_s": t2 - t1,
-                "export_s": time.perf_counter() - t2}
+                "read_s": t1 - t0, "device_s": t2 - t1, "export_s": t3 - t2,
+                "next_stage_s": time.perf_counter() - t3}
 
+        gt_folder = join(self.preprocessed_dataset_folder_base, "gt_segmentations")
+        summary = join(validation_output_folder, "summary.json")
+        rw = self.plans_manager.image_reader_writer_class()
+        if self.target_type == "translation":
+            metrics = compute_metrics_on_folder_reg(
+                gt_folder, validation_output_folder, summary, rw,
+                self.dataset_json["file_ending"], num_processes=4)
+            self.print_to_log_file(f"Validation (regression): "
+                                   f"{metrics['foreground_mean']}")
+            return metrics
         lm = self.label_manager
         metrics = compute_metrics_on_folder(
-            join(self.preprocessed_dataset_folder_base, "gt_segmentations"),
-            validation_output_folder,
-            join(validation_output_folder, "summary.json"),
-            self.plans_manager.image_reader_writer_class(),
+            gt_folder, validation_output_folder, summary, rw,
             self.dataset_json["file_ending"],
             lm.foreground_regions if lm.has_regions else lm.foreground_labels,
             lm.ignore_label, num_processes=4)

@@ -192,14 +192,29 @@ def test_train_val_reads_a_fold_in_the_jax_format(planned):
 
 
 def test_a_next_stage_configuration_raises(planned):
-    """The port's final validation writes no ``predicted_next_stage/``, so a
-    configuration with a next stage is refused."""
+    """A configuration with a next stage builds, and its final validation
+    writes the next stage's inputs (the name is kept from when the port
+    refused such a configuration): with a next stage ``2d_next`` that
+    inherits the 2d configuration, each validation case gets
+    ``predicted_next_stage/2d_next/<case>.npz``, a uint8 label map at its
+    preprocessed 2d shape."""
+    from nnuzoo_tpu_torch.data.dataset import DatasetNumpy
+
     _, pp, _ = planned
     plans = load_json(os.path.join(pp, DATASET, "nnUNetPlans.json"))
     dataset_json = load_json(os.path.join(pp, DATASET, "dataset.json"))
-    ttrainer.Trainer(plans, "2d", 0, dataset_json, device="cpu",
-                     trainer_name=NAME)
-    plans["configurations"]["2d"]["next_stage"] = "3d_cascade_fullres"
-    with pytest.raises(NotImplementedError, match="next stage"):
-        ttrainer.Trainer(plans, "2d", 0, dataset_json, device="cpu",
-                         trainer_name=NAME)
+    plans["configurations"]["2d"]["next_stage"] = "2d_next"
+    plans["configurations"]["2d_next"] = {"inherits_from": "2d"}
+    t = ttrainer.Trainer(plans, "2d", 0, dataset_json, device="cpu",
+                         trainer_name=NAME, seed=0)
+    assert t.configuration_manager.next_stage_names == ["2d_next"]
+    t.initialize()
+    t.perform_actual_validation()
+    _, val_keys = t.do_split()
+    folder = os.path.join(pp, DATASET, "predicted_next_stage", "2d_next")
+    assert sorted(os.listdir(folder)) == sorted(k + ".npz" for k in val_keys)
+    data = DatasetNumpy(os.path.join(pp, DATASET, "nnUNetPlans_2d"))
+    for k in val_keys:
+        seg = np.load(os.path.join(folder, k + ".npz"))["seg"]
+        assert seg.dtype == np.uint8 and seg.shape == data.load_case(k)[0].shape[1:]
+        assert set(np.unique(seg)) <= {0, 1, 2}

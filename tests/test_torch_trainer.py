@@ -173,11 +173,22 @@ def test_run_training_entry_point_and_the_parts_that_wait(dataset, monkeypatch):
     with pytest.raises(NotImplementedError, match="mesh"):
         make(dataset_json, trainer_name=NAME)
     monkeypatch.delenv("NNUZOO_MODEL_PARALLEL")
+    # a cascaded configuration builds: the previous stage's one-hot labels
+    # are input channels and its augmentation moves them there
     cascaded = {**plans, "configurations": {
         **plans["configurations"],
         "2d": dict(plans["configurations"]["2d"], previous_stage="3d_lowres")}}
-    with pytest.raises(NotImplementedError, match="cascaded"):
-        Trainer(cascaded, "2d", 0, dataset_json, device="cpu", trainer_name=NAME)
+    t = Trainer(cascaded, "2d", 0, dataset_json, device="cpu", trainer_name=NAME)
+    assert t.num_input_channels == 1 + len(t.label_manager.foreground_labels)
+    train_cfg, val_cfg = t._make_augment_config()
+    assert train_cfg.is_cascaded and val_cfg.is_cascaded
+    assert train_cfg.foreground_labels == tuple(t.label_manager.foreground_labels)
+    assert t._previous_stage_folder().endswith(
+        os.path.join("predicted_next_stage", "2d"))
+    # and so does a translation target
+    t = make(dict(dataset_json, target_type="translation"), trainer_name=NAME)
+    assert t.label_manager.num_segmentation_heads == \
+        len(dataset_json["labels"]) - 1
     # nnUNetTrainer has a model now; a zoo model without one raises
     with pytest.raises(RuntimeError, match="No model registered"):
         make(dataset_json, trainer_name="nnUNetTrainerUNETR").initialize()
