@@ -150,15 +150,39 @@ Phases, one line each (a failure anywhere exits non-zero):
      and ``evaluate_folder`` with the regression metrics, and the step at
      stage layers (1, 1, 1, 1) against fp64 on six seeded batches, the
      median kernel-over-plain ratio within phase 6's 2x;
- 31. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
+ 31. the Transformer baselines' attention blocks, after phase 25, each at
+     its full-width shape against its own fp64 twin on the card (output,
+     and the gradient of the input and of every parameter): a ViTBlock at
+     UNETR's width (768, 12 heads, 224 tokens, batch 12), a shifted
+     SwinBlock at SwT's stage 0 (96 channels, 3 heads, 64x56 padded to
+     70x56, batch 12), a shifted SwinBlockND at 3d SwinUNETR's stage 0 (48
+     channels, 3 heads, 24x96x96 padded to 28x98x98, batch 2);
+ 32. ``nnUNetTrainerUNETR`` through the command line on phase 14's raw
+     dataset and 2d plan (after phase 14): ``train <id> 2d 0 -tr
+     nnUNetTrainerUNETR`` (one epoch of 4 steps and one validation step)
+     with its final validation, ``predict_from_modelfolder`` and
+     ``evaluate_simple``; seconds a step, peak memory, Dice;
+ 33. ``nnUNetTrainerUNETR``, ``nnUNetTrainerSwinTransformerUnet`` and
+     ``nnUNetTrainerSwUNETR`` at 2d at full width (after phase 28): phase
+     22's serving and tile check, 4 training steps at batch 12 on phase 5's
+     dataset, and one full-width step against fp64
+     (TRANSFORMER_STEP_LIMITS);
+ 34. UNETR and SwinUNETR at 3d_fullres on phase 20-21's plan and dataset:
+     serving the 1x64x256x256 volume (with the tile check) and 4 training
+     steps at batch 2;
+     phases 31-34 print seconds, peak memory, TFLOP/s and the launches of
+     K1-K4, which must be none;
+ 35. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
      on every path, M2Net's under the key ``m2net``, the Mamba baselines'
-     under ``mamba`` (K1 and K2), and on each CNN path, the cascade's
-     included (none), under ``launches_on_cnn_paths``;
- 32. last line ``{"ok": true, "device": {...}}``.
+     under ``mamba`` (K1 and K2), on each CNN path, the cascade's included
+     (none), under ``launches_on_cnn_paths``, and on each Transformer path
+     (none) under ``launches_on_transformer_paths``;
+ 36. last line ``{"ok": true, "device": {...}}``.
 Every line is also written to ``chiprun_out/chip_smoke.jsonl``.
 ``--profile`` adds torch.profiler tables of one tile batch and of one
 training step under ``chiprun_out/``, for each glue. fp32 throughout (but
-for the fp64 references of phases 4, 6, 11, 12, 15, 16, 20-23, 26, 27 and 30),
+for the fp64 references of phases 4, 6, 11, 12, 15, 16, 20-23, 26, 27, 30,
+31, 33 and 34),
 TF32 off for matmuls and convolutions. Phases 14, 19 and 29 run the port's
 own planning and preprocessing on the host (numpy and scipy, 4 threads).
 """
@@ -1209,19 +1233,24 @@ def augmented(trainer, data, seg):
             data, seg)
 
 
-def seeded_batch(trainer, seed=STEP_SEED, batch_size=STEP_BATCH):
+def seeded_batch(trainer, seed=STEP_SEED, batch_size=STEP_BATCH,
+                 for_augmentation=True):
     """``batch_size`` patches that a sampler of its own, seeded with
     ``seed``, draws from the trainer's dataset (with the previous stage's
     segmentation as target channel 1 for a cascaded configuration): the
-    same batch on every run, whatever the trainer's own sampler did."""
+    same batch on every run, whatever the trainer's own sampler did. At the
+    augmentation's initial patch size, or with ``for_augmentation=False``
+    at the patch size, as the validation draws them."""
     import torch
     from nnuzoo_tpu_torch.data.patch_sampler import PatchSampler
     patch = tuple(trainer.configuration_manager.patch_size)
+    initial = trainer.train_aug_cfg.initial_patch_size[-len(patch):] \
+        if for_augmentation else patch
     sampler = PatchSampler(
         trainer.dataset_class(trainer.preprocessed_dataset_folder,
                               folder_with_segs_from_previous_stage=
                               trainer._previous_stage_folder()), batch_size,
-        initial_patch_size=trainer.train_aug_cfg.initial_patch_size[-len(patch):],
+        initial_patch_size=initial,
         final_patch_size=patch, label_manager=trainer.label_manager,
         oversample_foreground_percent=trainer.local_oversample, seed=seed,
         target_type=trainer.target_type)
@@ -1895,14 +1924,14 @@ def scan_calls(trainer_name, dim):
 
 
 def phase_cnn_serving(trainer_name, dim):
-    """Serving a CNN baseline (or a Mamba baseline at 3d) at
+    """Serving a CNN or Transformer baseline (or a Mamba baseline at 3d) at
     full width through ``Predictor.predict_single_npy_array``: at 3d
     zoo_sweep's plan on a seeded 1x64x256x256 volume (8 tiles, tile batch 2,
     mirror TTA over 3 axes), at 2d phase 4's volume and settings. Seconds
-    per volume, peak memory and K1-K4 launches (none for a CNN; a Mamba
-    model's K1 launches a forward as its scan table says); for a CNN one tile
-    batch's logits, fp32 against the same model in fp64, by phase 4's
-    limits. Returns the launches."""
+    per volume, peak memory and K1-K4 launches (none for a CNN or a
+    Transformer; a Mamba model's K1 launches a forward as its scan table
+    says); for a model without scans one tile batch's logits, fp32 against
+    the same model in fp64, by phase 4's limits. Returns the launches."""
     import numpy as np
     import torch
     from nnuzoo_tpu_torch.inference.predictor import Predictor
@@ -1948,7 +1977,7 @@ def phase_cnn_serving(trainer_name, dim):
     launches, forwards = scan_launches(), predictor.forward_count
     labels = sorted(int(v) for v in np.unique(seg))
     tile_flop = model_flop(model, (1, *patch, 1), backward=False)
-    emit("mamba_serving_3d" if per_forward else "cnn_serving",
+    emit("mamba_serving_3d" if per_forward else f"{path_kind(trainer_name)}_serving",
          trainer=trainer_name, model=type(model).__name__, dim=dim,
          parameters=sum(p.numel() for p in model.parameters()), patch=list(patch),
          model_build_s=build_s, seconds_per_volume=seconds,
@@ -1987,7 +2016,8 @@ def phase_cnn_serving(trainer_name, dim):
     del reference, model64
     c = compare(got, want)
     c["argmax_agreement"] = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    emit("cnn_tile_logits", trainer=trainer_name, dim=dim, tiles=len(slicers),
+    emit(f"{path_kind(trainer_name)}_tile_logits", trainer=trainer_name, dim=dim,
+         tiles=len(slicers),
          fp32_vs_fp64=c)
     if not (c["max_abs"] <= TILE_MAX_TOL * c["range_ref"]
             and c["mean_abs"] <= TILE_MEAN_TOL * c["range_ref"]
@@ -1998,15 +2028,15 @@ def phase_cnn_serving(trainer_name, dim):
 
 
 def phase_cnn_training(trainer_name, dim):
-    """``Trainer.run_training()`` of a CNN baseline (or a Mamba
-    baseline at 3d) for one epoch of TRAIN_STEPS steps and one
+    """``Trainer.run_training()`` of a CNN or Transformer baseline (or a
+    Mamba baseline at 3d) for one epoch of TRAIN_STEPS steps and one
     validation step (SGD and poly for the PlainConvUNet), at 3d on three
     seeded preprocessed 1x80x256x256 cases at zoo_sweep's spacing (written
     unless there), at 2d on phase 5's dataset. Seconds per step, peak
-    memory, K1-K4 launches (none for a CNN; a Mamba model's K1 and K2 as its
-    scan table says, each step and the validation step). Returns the
-    trainer, the launches (all of K1-K4; K1's and K2's for a Mamba model)
-    and the last batch."""
+    memory, K1-K4 launches (none for a CNN or a Transformer; a Mamba
+    model's K1 and K2 as its scan table says, each step and the validation
+    step). Returns the trainer, the launches (all of K1-K4; K1's and K2's
+    for a Mamba model) and the last batch."""
     import numpy as np
     import torch
     from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
@@ -2073,7 +2103,8 @@ def phase_cnn_training(trainer_name, dim):
         initial_patch=list(trainer.train_aug_cfg.initial_patch_size),
         do_dummy_2d=trainer.train_aug_cfg.do_dummy_2d,
         ds_scales=ds_scales_list(trainer))
-    emit(f"mamba_training_{dim}d" if per_forward else "cnn_training", **readings)
+    emit(f"mamba_training_{dim}d" if per_forward
+         else f"{path_kind(trainer_name)}_training", **readings)
     if len(steps) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
             not np.isfinite(log["val_losses"][0]) or \
             k1_k2 != ((TRAIN_STEPS + 1) * per_forward, TRAIN_STEPS * per_forward) \
@@ -2124,22 +2155,30 @@ def profile_cnn_step(trainer, data, seg):
                                 for e in top])
 
 
-def phase_cnn_step_agreement(trainer):
-    """One 3d training step of the trainer's PlainConvUNet, with weights
-    drawn from STEP_SEED, on the batch of STEP_SEED's sampler (the plan's
-    batch, augmented once with a fixed seed): the loss and every gradient in
-    fp32 against the same step in fp64 on the card, held to
-    CNN_STEP_LIMITS."""
+def phase_cnn_step_agreement(trainer, limits=CNN_STEP_LIMITS, augment=True):
+    """One training step of the trainer's model (the 3d PlainConvUNet, or a
+    Transformer baseline), with weights drawn from STEP_SEED, on the batch of
+    STEP_SEED's sampler (the plan's batch, augmented once with a fixed
+    seed; with ``augment=False`` drawn at the patch size and not augmented):
+    the loss and every gradient in fp32 against the same step in fp64 on the
+    card, with the same DropPath masks, held to ``limits``."""
     import torch
+    from nnuzoo_tpu_torch.data.augment import prepare_val_batch
+    from nnuzoo_tpu_torch.models.layers import DropPath
     from nnuzoo_tpu_torch.models.registry import get_model_builder
     model = get_model_builder(trainer.trainer_name)(
         trainer.plans_manager, trainer.dataset_json, trainer.configuration_manager,
         trainer.num_input_channels, True, device="cuda", seed=STEP_SEED)
-    data_aug, targets = augmented(trainer, *seeded_batch(
-        trainer, batch_size=trainer.configuration_manager.batch_size))
+    batch = seeded_batch(trainer, batch_size=trainer.configuration_manager.batch_size,
+                         for_augmentation=augment)
+    data_aug, targets = augmented(trainer, *batch) if augment else \
+        prepare_val_batch(trainer.val_aug_cfg, *batch)
 
     def loss_and_grads(net, dtype):
         net.train()
+        for m in net.modules():     # the twins share one generator
+            if isinstance(m, DropPath) and m.generator is not None:
+                m.generator.manual_seed(STEP_SEED)
         outputs = net(data_aug.to(dtype).movedim(1, -1).contiguous())
         loss = trainer._compute_loss(outputs, targets)
         params = list(net.parameters())
@@ -2168,14 +2207,15 @@ def phase_cnn_step_agreement(trainer):
                     grad_norm_fp64=norm, grad_err_norm=err,
                     grad_rel_err_norm=err / norm,
                     finite=all(bool(torch.isfinite(g).all()) for g in grads))
-    emit("cnn_step_agreement", trainer=trainer.trainer_name,
+    emit(f"{path_kind(trainer.trainer_name)}_step_agreement",
+         trainer=trainer.trainer_name, augmented=augment,
          batch=list(data_aug.shape), seed=STEP_SEED, fp32_s=fp32_s, fp64_s=fp64_s,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
-         limits=CNN_STEP_LIMITS, **readings)
+         limits=limits, **readings)
     if not (readings["finite"] and all(readings[k] <= v
-                                       for k, v in CNN_STEP_LIMITS.items())):
+                                       for k, v in limits.items())):
         raise AssertionError(f"{trainer.trainer_name} step against fp64: "
-                             f"{readings} against {CNN_STEP_LIMITS}")
+                             f"{readings} against {limits}")
 
 
 def phase_cnn_validation(trainer):
@@ -2840,6 +2880,182 @@ def on_path(rows, weight, batch, **widths):
             and all(r[k] == v for k, v in widths.items())]
 
 
+# ----------------------------------------------------------------- Transformer baselines
+# UNETR (ViT-B), SwinTransformerUnet and SwinUNETR: attention in plain PyTorch
+# (matmuls and softmax through cuBLAS), convolutions through cuDNN; their
+# paths launch none of K1-K4.
+UNETR = "nnUNetTrainerUNETR"
+SWT = "nnUNetTrainerSwinTransformerUnet"
+SWIN_UNETR = "nnUNetTrainerSwUNETR"
+TRANSFORMERS = (UNETR, SWT, SWIN_UNETR)
+TRANSFORMERS_3D = (UNETR, SWIN_UNETR)
+ATTN_TOL = 1e-4          # max abs error / max |out| of one block against fp64
+ATTN_GRAD_TOL = 1e-3     # each gradient's max abs error / its max
+# one full-width 2d training step (weights from STEP_SEED, batch 12 of
+# STEP_SEED's sampler at the patch size, not augmented, DropPath live with the
+# same masks) against the same step in fp64: |loss - fp64| / |fp64| and the
+# gradient's error norm over the fp64 gradient's norm. The first run on an
+# H100 80GB HBM3 at 700 W read, (loss, gradient): UNETR 5.3e-8, 1.22e-4; SwT
+# 4.8e-8, 2.4e-6; SwinUNETR 1.21e-7, 1.31e-4. The limits sit about 2.5x
+# outside. Zero-padded tokens (the sampler's and the augmentation's fill)
+# pass exactly zero through the Swin blocks at initialisation (zero biases),
+# and each LayerNorm of a zero token (eps 1e-6) scales its gradient by 1000:
+# the Swin models' fp64 gradient norms read 2e34 and 1.6e37 here, and on
+# the augmented batch SwinUNETR's overflows fp32 (the JAX package's model
+# does the same), so the check takes the batch unaugmented.
+TRANSFORMER_STEP_LIMITS = {
+    UNETR: {"loss_rel_err": 1.5e-7, "grad_rel_err_norm": 3e-4},
+    SWT: {"loss_rel_err": 1.5e-7, "grad_rel_err_norm": 6e-6},
+    SWIN_UNETR: {"loss_rel_err": 3e-7, "grad_rel_err_norm": 3e-4},
+}
+
+
+def path_kind(trainer_name):
+    return "transformer" if trainer_name in TRANSFORMERS else "cnn"
+
+
+def timed(label, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, then a ``phase_seconds`` line of its wall
+    time."""
+    t0 = time.perf_counter()
+    result = fn(*args, **kwargs)
+    emit("phase_seconds", of=label, seconds=time.perf_counter() - t0)
+    return result
+
+
+def phase_transformer_blocks():
+    """Each attention block at its full-width shape against its own fp64
+    twin on the card, the output and the gradient of the input and of every
+    parameter: a ViTBlock at UNETR's width (768, 12 heads, 224 tokens,
+    batch 12), a shifted SwinBlock at SwT's stage 0 (96 channels, 3 heads,
+    64x56 padded to 70x56, batch 12) and a shifted SwinBlockND at 3d
+    SwinUNETR's stage 0 (48 channels, 3 heads, 24x96x96 padded to
+    28x98x98, batch 2); ms of an fp32 forward and backward, peak memory."""
+    import torch
+    from nnuzoo_tpu_torch.models.attention import SwinBlock, SwinBlockND, ViTBlock
+    from nnuzoo_tpu_torch.models.layers import init_parameters
+    g = torch.Generator(device="cuda").manual_seed(8)
+    cases = (("ViTBlock", lambda: ViTBlock(768, 12), (TRAIN_BATCH, 224, 768)),
+             ("SwinBlock", lambda: SwinBlock(96, 3, (64, 56), 7, 3),
+              (TRAIN_BATCH, 64, 56, 96)),
+             ("SwinBlockND", lambda: SwinBlockND(48, 3, (24, 96, 96), 7, 3),
+              (CNN_3D_BATCH, 24, 96, 96, 48)))
+    for name, make, shape in cases:
+        module = make()
+        init_parameters(module, torch.Generator().manual_seed(9))
+        module = module.cuda()
+        twin = copy.deepcopy(module).double()
+        x = torch.randn(*shape, device="cuda", generator=g)
+        dout = torch.randn(*shape, device="cuda", generator=g)
+        names = ["input"] + [n for n, _ in module.named_parameters()]
+
+        def run(m, dtype):
+            xx = x.to(dtype).requires_grad_()
+            out = m(xx)
+            return out.detach(), torch.autograd.grad(
+                out, [xx] + list(m.parameters()), dout.to(dtype))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: run(module, torch.float32), reps=5)
+        peak = torch.cuda.max_memory_allocated()
+        got, grads = run(module, torch.float32)
+        want, want_grads = run(twin, torch.float64)
+        c = compare(got.double(), want)
+        rel = {n: ((a.double() - b).abs().max() / b.abs().max()).item()
+               for n, a, b in zip(names, grads, want_grads)}
+        window = padded = None
+        if len(shape) > 3:
+            window, _ = module.window_and_shift(shape[1:-1])
+            padded = [s + (-s) % w for s, w in zip(shape[1:-1], window)]
+        emit("transformer_block", block=name, shape=list(shape), window=window,
+             padded=padded, fwd_bwd_ms=ms, peak_memory_bytes=peak,
+             fp32_vs_fp64=c, grad_rel_err=rel)
+        bad = {n: e for n, e in rel.items() if not e <= ATTN_GRAD_TOL}
+        if not c["max_abs"] <= ATTN_TOL * c["max_ref"] or bad:
+            raise AssertionError(f"{name} against fp64: {c}, gradients {bad}")
+        del module, twin, grads, want_grads
+        torch.cuda.empty_cache()
+
+
+def phase_planned_transformer(card):
+    """UNETR through the command line on phase 14's raw dataset and its 2d
+    plan (patch 256x224, batch 12): ``train <id> 2d 0 -tr
+    nnUNetTrainerUNETR``, one epoch of TRAIN_STEPS steps and one validation
+    step, with its final validation; ``predict_from_modelfolder`` on
+    ``imagesTs`` and ``evaluate_simple`` against ``labelsTs``. Seconds per
+    step, peak memory, Dice. Returns the K1-K4 launches (none)."""
+    import numpy as np
+    import torch
+    from nnuzoo_tpu_torch.cli.entry_points import main as cli
+    from nnuzoo_tpu_torch.training import trainer_config
+    from nnuzoo_tpu_torch.training.trainer import Trainer
+    from nnuzoo_tpu_torch.utilities.io import load_json
+
+    raw = os.path.join(os.environ["nnUNet_raw"], RAW_NAME)
+    steps = []
+    inner = Trainer.train_step
+
+    def observed_step(self, data, seg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = inner(self, data, seg)
+        torch.cuda.synchronize()
+        steps.append(dict(seconds=time.perf_counter() - t0, loss=loss.item()))
+        return loss
+
+    base = trainer_config.TRAINER_CONFIGS[UNETR]
+    trainer_config.TRAINER_CONFIGS[UNETR] = replace(
+        base, num_epochs=1, num_iterations_per_epoch=TRAIN_STEPS,
+        num_val_iterations_per_epoch=1)
+    Trainer.train_step = observed_step
+    reset_scan_launches()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cli(["train", str(RAW_ID), "2d", "0", "-tr", UNETR, "-device", "cuda"])
+        torch.cuda.synchronize()
+        train_seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        Trainer.train_step = inner
+        trainer_config.TRAINER_CONFIGS[UNETR] = base
+    model_folder = os.path.join(os.environ["nnUNet_results"], RAW_NAME,
+                                f"{UNETR}__nnUNetPlans__2d")
+    summary = load_json(os.path.join(model_folder, "fold_0", "validation",
+                                     "summary.json"))
+    predicted = os.path.join(os.environ["nnUNet_results"], "planned_unetr")
+    t0 = time.perf_counter()
+    predictor = cli(["predict_from_modelfolder", "-i", os.path.join(raw, "imagesTs"),
+                     "-o", predicted, "-m", model_folder, "-f", "0",
+                     "-device", "cuda"])
+    torch.cuda.synchronize()
+    predict_seconds = time.perf_counter() - t0
+    scores = cli(["evaluate_simple", os.path.join(raw, "labelsTs"), predicted,
+                  "-l", "1", "2", "-o", os.path.join(predicted, "summary.json"),
+                  "-np", "2"])
+    launches = scan_launches()
+    dice, val_dice = scores["foreground_mean"]["Dice"], \
+        summary["foreground_mean"]["Dice"]
+    emit("planned_transformer", card=card, dataset=RAW_NAME, trainer=UNETR,
+         model=type(predictor.model).__name__, steps=steps,
+         seconds_per_step_after_first=float(np.mean([s["seconds"]
+                                                     for s in steps[1:]])),
+         train_and_validation_s=train_seconds, peak_memory_bytes=peak,
+         validation_dice=val_dice, predict_s=predict_seconds,
+         forwards=predictor.forward_count, foreground_dice=dice,
+         dice_per_label={k: v["Dice"] for k, v in scores["mean"].items()},
+         scan_launches=launches)
+    del predictor
+    torch.cuda.empty_cache()
+    if len(steps) != TRAIN_STEPS or launches or \
+            len(scores["metric_per_case"]) != 2 or \
+            not (np.isfinite(dice) and np.isfinite(val_dice)):
+        raise AssertionError(f"planned UNETR: steps {steps}, {launches} scan "
+                             f"launches, Dice {dice}, validation {val_dice}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2856,6 +3072,11 @@ def main():
     LOG.write_text("")
     card = card_line()
     out(card)
+    start = time.perf_counter()
+
+    def elapsed(after):
+        emit("elapsed", after=after, seconds=time.perf_counter() - start)
+
     t0 = time.perf_counter()
     built = _build.build_all()
     emit("build", seconds=time.perf_counter() - t0, built=sorted(built),
@@ -2868,6 +3089,9 @@ def main():
     # the Mamba baselines' scan shapes and blocks
     mamba_fwd_rows, mamba_bwd_rows = phase_mamba_scan_kernels()
     phase_mamba_blocks()
+    # the Transformer baselines' attention blocks against fp64
+    timed("transformer_blocks", phase_transformer_blocks)
+    elapsed("kernels and blocks")
     serving_launches = phase_end_to_end(profile)
     torch.cuda.empty_cache()
     m2 = {"serving": phase_end_to_end(profile, trainer_name=M2NET)}
@@ -2903,6 +3127,7 @@ def main():
             del trainer
             torch.cuda.empty_cache()
     torch.cuda.empty_cache()
+    elapsed("serving and training, default glue")
 
     # the fused cross-scan glue (NNUZOO_SS2D_FUSED=1): K3 and K4
     cross_fwd_rows, cross_bwd_rows = phase_cross_scan_kernels()
@@ -2926,6 +3151,7 @@ def main():
         m2["remat_fused"] = phase_remat(trainer, "fused")
         del trainer
     torch.cuda.empty_cache()
+    elapsed("fused glue")
 
     # from a raw dataset: the port's planning and preprocessing, then
     # training, the final validation, prediction and the score, default glue
@@ -2935,6 +3161,10 @@ def main():
             os.makedirs(os.environ[var])
         planned_fwd_launches, planned_bwd_launches = phase_planned_dataset(card)
         torch.cuda.empty_cache()
+        # UNETR through the command line on the same 2d plan
+        transformer = {"planned_2d": timed("planned_transformer",
+                                           phase_planned_transformer, card)}
+        torch.cuda.empty_cache()
         # the same raw dataset at 3d: PlainConvUNet and ResidualEncoderUNet
         cnn = {"planned_3d": phase_planned_3d(card)}
         torch.cuda.empty_cache()
@@ -2942,6 +3172,7 @@ def main():
         # export, 3d_cascade_fullres with the cascade augmentation
         cnn["cascade"] = phase_cascade(card)
     torch.cuda.empty_cache()
+    elapsed("raw dataset, 3d planning and cascade")
 
     # the translation target: M2NetP at full width on float targets
     with tempfile.TemporaryDirectory() as tmp:
@@ -2949,6 +3180,7 @@ def main():
         os.environ["nnUNet_results"] = os.path.join(tmp, "results")
         translation_launches = phase_translation(card)
     torch.cuda.empty_cache()
+    elapsed("translation")
 
     # the nnU-Net CNN baselines at full width, whose paths launch no scan
     # kernel: 3d_fullres serving, training, one step against fp64 and the
@@ -2975,6 +3207,27 @@ def main():
             trainer, mamba[f"training_3d_{name}"], _ = phase_cnn_training(name, 3)
             del trainer
             torch.cuda.empty_cache()
+        elapsed("CNN and Mamba baselines")
+        # the Transformer baselines: serving, training and one step against
+        # fp64 at 2d, then UNETR and SwinUNETR at 3d_fullres
+        for name in TRANSFORMERS:
+            transformer[f"serving_2d_{name}"] = timed(
+                f"serving_2d {name}", phase_cnn_serving, name, 2)
+            trainer, transformer[f"training_2d_{name}"], _ = timed(
+                f"training_2d {name}", phase_cnn_training, name, 2)
+            timed(f"step_agreement {name}", phase_cnn_step_agreement, trainer,
+                  TRANSFORMER_STEP_LIMITS[name], augment=False)
+            del trainer
+            torch.cuda.empty_cache()
+        for name in TRANSFORMERS_3D:
+            transformer[f"serving_3d_{name}"] = timed(
+                f"serving_3d {name}", phase_cnn_serving, name, 3)
+            torch.cuda.empty_cache()
+            trainer, transformer[f"training_3d_{name}"], _ = timed(
+                f"training_3d {name}", phase_cnn_training, name, 3)
+            del trainer
+            torch.cuda.empty_cache()
+        elapsed("Transformer baselines")
 
     # one training step's scan work: the per-shape numbers at the training
     # batch weighted by the calls of each shape
@@ -3064,10 +3317,15 @@ def main():
                          {"training_fused": m2["training_fused"][1]})),
     ]
     for entry in kernels:
-        # K1-K4 together on each path of the CNN baselines: none
+        # K1-K4 together on each path of the CNN and Transformer baselines:
+        # none
         entry["launches_on_cnn_paths"] = cnn
+        entry["launches_on_transformer_paths"] = transformer
     if any(cnn.values()):
         raise AssertionError(f"scan kernels launched on the CNN paths: {cnn}")
+    if any(transformer.values()):
+        raise AssertionError(f"scan kernels launched on the Transformer paths: "
+                             f"{transformer}")
     if min(serving_launches, fwd_launches, bwd_launches, validation_launches,
            files_launches, fused_serving_launches, k3_launches, k4_launches,
            fused_validation_launches, fused_files_launches,

@@ -6,7 +6,9 @@ and ``nnUNetTrainerU2NetP``, ``nnUNetTrainerM2NetP`` (M2NetP),
 ``nnUNetTrainerM2Net`` and ``nnUNetTrainerFineTuneDecoderWarmUp`` (M2Net),
 the Mamba baselines ``nnUNetTrainerSwinUMamba``,
 ``nnUNetTrainerSwinUMambaD``, ``nnUNetTrainerLightMUNet``,
-``nnUNetTrainerLightSS2DMambaUNet`` and ``nnUNetTrainerSegMamba``, and each
+``nnUNetTrainerLightSS2DMambaUNet`` and ``nnUNetTrainerSegMamba``, the
+Transformer baselines ``nnUNetTrainerUNETR``,
+``nnUNetTrainerSwinTransformerUnet`` and ``nnUNetTrainerSwUNETR``, and each
 of them with a ``_05Percent`` .. ``_75Percent`` suffix, which builds the
 base name's model).
 
@@ -62,7 +64,7 @@ def register_model(trainer_names, builder: Callable) -> None:
 
 def get_model_builder(trainer_name: str) -> Callable:
     from . import (light_munet, m2net, seg_mamba, swin_umamba,  # noqa: F401
-                   u2net)  # (register their trainer names)
+                   swt, u2net, unetr)  # (register their trainer names)
     if trainer_name in MODEL_BUILDERS:
         return MODEL_BUILDERS[trainer_name]
     # the data-fraction variants (nnUNetTrainer_25Percent ..) build the base model

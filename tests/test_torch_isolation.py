@@ -36,7 +36,8 @@ for wanted in ("training.trainer", "training.losses", "training.schedulers",
                "utilities.json_export", "run.load_pretrained_weights",
                "models.dynamic_unet", "models.u2net", "models.registry",
                "models.mamba", "models.unetr", "models.light_munet",
-               "models.seg_mamba", "models.swin_umamba"):
+               "models.seg_mamba", "models.swin_umamba", "models.attention",
+               "models.swt", "models.x2net"):
     assert "nnuzoo_tpu_torch." + wanted in names, wanted
 """
 

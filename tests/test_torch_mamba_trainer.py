@@ -229,7 +229,7 @@ def test_registry_names_and_data_fractions():
                     trainer_name=name + "_25Percent")
         assert t.config.data_fraction == 0.25
     with pytest.raises(RuntimeError, match="No model registered"):
-        registry.get_model_builder("nnUNetTrainerUNETR")
+        registry.get_model_builder("nnUNetTrainerSwT2Net")
 
 
 def test_mamba2_layer_raises():

@@ -191,7 +191,7 @@ def test_run_training_entry_point_and_the_parts_that_wait(dataset, monkeypatch):
         len(dataset_json["labels"]) - 1
     # nnUNetTrainer has a model now; a zoo model without one raises
     with pytest.raises(RuntimeError, match="No model registered"):
-        make(dataset_json, trainer_name="nnUNetTrainerUNETR").initialize()
+        make(dataset_json, trainer_name="nnUNetTrainerSwT2Net").initialize()
 
 
 def test_entry_points_raise_without_the_card_they_were_asked_for(dataset):
