@@ -18,14 +18,17 @@ Phases, one line each (a failure anywhere exits non-zero):
      one MU at stage-1 width and 256x224, kernel path against plain path;
   4. serving end to end: M2NetP at full width and depth (7, 6, 5, 4), seeded
      weights, through ``Predictor.predict_single_npy_array`` (2d plans, patch
-     256x224, mirror TTA, tile batch 4) on a seeded 1x4x224x256 volume; the
-     scan launches of that run, seconds per volume, and one tile batch's
-     logits from the kernel path and the fp32 plain path, each against the
-     plain path in fp64;
+     256x224, mirror TTA, tile batch 4) on a seeded 1x4x224x256 volume,
+     after a warm-up of one tile batch; the scan launches of that run,
+     seconds per volume, and one tile batch's logits from the kernel path
+     and the fp32 plain path, each against the plain path in fp64 (with
+     the mirrors for M2NetP at full depth; every other model's tile check,
+     here and in the phases below, is one pass without them);
   5. training end to end: a seeded preprocessed 2d dataset is written to a
      temporary folder and ``Trainer(...).run_training()`` of
      ``nnUNetTrainerM2NetP`` (full depth, patch 256x224, batch 12) takes one
-     epoch of 4 steps and 1 validation step; the losses, seconds per step,
+     epoch of TRAIN_STEPS (3) steps and 1 validation step (so do the other
+     training phases); the losses, seconds per step,
      scan launches per step and peak memory;
   6. one training step's loss and gradients, kernel path and fp32 plain path
      from the same weights and batch, each against the plain path in fp64,
@@ -38,8 +41,9 @@ Phases, one line each (a failure anywhere exits non-zero):
      one seeded batch;
   7. the checkpoint of phase 5 loaded through
      ``Predictor.initialize_from_trained_model_folder`` predicts a volume;
-  8. the file-to-file paths on phase 5's model: its final validation
-     (``Trainer.perform_actual_validation``, segmentations written through
+  8. the file-to-file paths on phase 5's model: its final validation on
+     the fold's first case (so do phases 13, 21 and 30;
+     ``Trainer.perform_actual_validation``, segmentations written through
      the plans' NIfTI writer and scored against ``gt_segmentations``), then
      the command line's ``predict`` entry on a seeded raw folder of two
      1x4x224x256 ``.nii.gz`` cases from phase 5's results folder, each
@@ -55,18 +59,22 @@ Phases, one line each (a failure anywhere exits non-zero):
      M2NetP does not have (Dh 64, 128 and 256 with R 2, 4 and 8);
  10. one SS2D at stage-1 width with the fused glue against the default
      glue, forward and every gradient, both on the kernels;
- 11. serving with the fused glue (``NNUZOO_SS2D_FUSED=1``): phase 4 again,
-     160 K3 launches and no K1 launch per forward;
- 12. training with the fused glue: phase 5 again, 160 K3 and 160 K4
-     launches and no K1/K2 launch per step, then the steps at stage layers
-     (1, 1, 1, 1) on the six seeded batches against fp64 as in phase 6;
- 13. phase 8 with the fused glue: K3 launches and no K1 launch;
+ 11. serving with the fused glue (``NNUZOO_SS2D_FUSED=1``): phase 4 again
+     with M2NetP at stage layers (1, 1, 1, 1) (phases 11-13 repeat phases
+     4, 5 and 8, which run it at full depth), 16 K3 launches and no K1
+     launch per forward;
+ 12. training with the fused glue: phase 5 again at stage layers (1, 1, 1,
+     1), 16 K3 and 16 K4 launches and no K1/K2 launch per step, then the
+     steps at stage layers (1, 1, 1, 1) on the six seeded batches against
+     fp64 as in phase 6;
+ 13. phase 8 with the fused glue on phase 12's model: K3 launches and no K1
+     launch;
  14. from a raw dataset, default glue: a seeded raw folder (three training
      cases of (z, y, x) 80x256x224 at spacing (3, 1, 1), two test cases of
      4x256x224, ``.nii``) planned and preprocessed by the command line's
      ``plan_and_preprocess`` (the 2d plan must be patch [256, 224] at batch
      12, every case's ``class_locations`` must hold labels 1 and 2), then
-     ``run_training`` at full depth on fold 0 (one epoch of 4 steps and one
+     ``run_training`` at full depth on fold 0 (one epoch of 3 steps and one
      validation step, 80 K1 and 80 K2 launches a step) with its final
      validation, ``predict_from_modelfolder`` on the test images and
      ``evaluate_simple`` against their labels; seconds of fingerprint,
@@ -92,7 +100,7 @@ Phases, one line each (a failure anywhere exits non-zero):
      3d_fullres 0`` with the default trainer (``nnUNetTrainer``,
      PlainConvUNet, SGD) and with ``-tr nnUNetTrainerResEncUNet -p
      nnUNetResEncUNetPlans`` (ResidualEncoderUNet), each cut to one epoch of
-     4 steps and one validation step, with the final validation, then
+     3 steps and one validation step, with the final validation, then
      ``predict_from_modelfolder`` and ``evaluate_simple`` on the test
      cases; seconds per step and Dice;
  20. ``nnUNetTrainer`` at 3d_fullres at full width
@@ -102,11 +110,11 @@ Phases, one line each (a failure anywhere exits non-zero):
      batch 2), seconds per volume, one tile batch's logits against the
      model in fp64 by phase 4's limits;
  21. the same model training: ``run_training`` on three seeded preprocessed
-     1x80x256x256 cases (4 steps at batch 2, SGD and poly, one validation
+     1x80x256x256 cases (3 steps at batch 2, SGD and poly, one validation
      step), its final validation, one step's loss and gradient against fp64
      (CNN_STEP_LIMITS), and one profiled step for the device's busy share;
  22. ``nnUNetTrainer`` at 2d at full width (benchmarks/bench_inference.py's
-     PlainConvUNet, 256x224): phase 4's serving and tile check, 4 training
+     PlainConvUNet, 256x224): phase 4's serving and tile check, 3 training
      steps at batch 12 on phase 5's dataset;
  23. ``nnUNetTrainerU2NetP`` and ``nnUNetTrainerU2Net`` at 256x224: phase
      22 again for each;
@@ -124,12 +132,12 @@ Phases, one line each (a failure anywhere exits non-zero):
  26. serving each of the five Mamba trainers at full width with seeded
      weights (after phase 15): phase 4's volume, settings and tile-batch
      check, K1 launches a forward as the CPU tests' scan tables count them;
- 27. training each of them (after phase 16, on phase 5's dataset): 4 steps
+ 27. training each of them (after phase 16, on phase 5's dataset): 3 steps
      at batch 12 and a validation step, K1 and K2 launches a step, peak
      memory; one full-width step against fp64 for SwinUMamba, LightMUNet
      and SegMamba by phase 16's rule;
  28. LightMUNet and SegMamba at 3d_fullres on phase 20-21's plan and
-     dataset (after phase 23): serving the 1x64x256x256 volume and 4
+     dataset (after phase 23): serving the 1x64x256x256 volume and 3
      training steps at batch 2, seconds, peak memory and launches;
  29. the nnU-Net cascade on phase 14's raw dataset, after phase 19:
      ``add_lowres_and_cascade``, ``preprocess -c 3d_lowres``, ``train <id>
@@ -145,8 +153,9 @@ Phases, one line each (a failure anywhere exits non-zero):
      morphology and component removal on the card equal the CPU's bit for
      bit;
  30. the translation target: ``nnUNetTrainerM2NetP`` at full width and
-     depth on a seeded 2d dataset of float targets (phase 5's shapes, batch
-     12), 4 steps with 80 K1 and 80 K2 launches each, its final validation
+     stage layers (1, 1, 1, 1) (phase 5 trains it at full depth) on a seeded
+     2d dataset of float targets (phase 5's shapes, batch 12), 3 steps with
+     8 K1 and 8 K2 launches each, its final validation
      and ``evaluate_folder`` with the regression metrics, and the step at
      stage layers (1, 1, 1, 1) against fp64 on six seeded batches, the
      median kernel-over-plain ratio within phase 6's 2x;
@@ -159,30 +168,57 @@ Phases, one line each (a failure anywhere exits non-zero):
      channels, 3 heads, 24x96x96 padded to 28x98x98, batch 2);
  32. ``nnUNetTrainerUNETR`` through the command line on phase 14's raw
      dataset and 2d plan (after phase 14): ``train <id> 2d 0 -tr
-     nnUNetTrainerUNETR`` (one epoch of 4 steps and one validation step)
+     nnUNetTrainerUNETR`` (one epoch of 3 steps and one validation step)
      with its final validation, ``predict_from_modelfolder`` and
      ``evaluate_simple``; seconds a step, peak memory, Dice;
  33. ``nnUNetTrainerUNETR``, ``nnUNetTrainerSwinTransformerUnet`` and
      ``nnUNetTrainerSwUNETR`` at 2d at full width (after phase 28): phase
-     22's serving and tile check, 4 training steps at batch 12 on phase 5's
+     22's serving and tile check, 3 training steps at batch 12 on phase 5's
      dataset, and one full-width step against fp64
      (TRANSFORMER_STEP_LIMITS);
  34. UNETR and SwinUNETR at 3d_fullres on phase 20-21's plan and dataset:
-     serving the 1x64x256x256 volume (with the tile check) and 4 training
+     serving the 1x64x256x256 volume (with the tile check) and 3 training
      steps at batch 2;
      phases 31-34 print seconds, peak memory, TFLOP/s and the launches of
      K1-K4, which must be none;
- 35. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
+ 35. the LM2Net family (LM2Net, LM2NetP, LightMamba2Net, LightMamba2NetP),
+     after phase 25: K1 (with the carries at batch 12, without them at
+     batch 4) and K2 against their plain versions at every (L, K*Dh, K) of
+     their scan tables (LM2NET_SCANS_2D; LightMamba2Net(P) on the mamba1
+     route, LM2NET_MAMBA1_SCANS_2D) that no earlier phase has, K=1 with
+     K*Dh 32-512 and L from 57,344 down to 28, and on steep decay at K*Dh
+     32;
+ 36. one Mamba2Block at LightMamba2NetP's stage-1 width (d_model 32, 16
+     heads, d_state 16) over 12x57,344 tokens: the SSD route against its
+     fp64 twin (output to 1e-4 of its max, every gradient to 1e-3 of its
+     max), against the mamba1 route on K1/K2 (2e-3), the ms of each route
+     forwards and backwards and the SSD route's peak memory;
+ 37. serving each of the four at full width with seeded weights (after
+     phase 34): phase 4's volume, settings and tile batch (LightMamba2Net(P)
+     held to the ratio rule alone: their random weights amplify fp32
+     rounding past the absolute limits), K1 launches a forward as the CPU
+     tests' tables count them (none on SSD), none of K3/K4, TFLOP/s;
+ 38. training each of them on phase 5's dataset (3 steps at batch 12 and a
+     validation step, K1/K2 launches a step, peak memory within the card
+     without remat, TFLOP/s), one full-width step of LM2Net (kernel and
+     fp32 plain paths) and of LightMamba2Net (SSD) against fp64 by phase
+     16's rule;
+ 39. LightMamba2Net's serving again on the mamba1 route
+     (``NNUZOO_SCAN_BACKEND=mamba1``): 202 K1 launches a forward, its
+     segmentation in argmax agreement with the SSD route's (ROUTE_AGREE_MIN);
+ 40. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
      on every path, M2Net's under the key ``m2net``, the Mamba baselines'
-     under ``mamba`` (K1 and K2), on each CNN path, the cascade's included
-     (none), under ``launches_on_cnn_paths``, and on each Transformer path
-     (none) under ``launches_on_transformer_paths``;
- 36. last line ``{"ok": true, "device": {...}}``.
+     under ``mamba`` and the LM2Net family's under ``lm2net`` (K1 and K2),
+     on each CNN path, the cascade's included (none), under
+     ``launches_on_cnn_paths``, on each Transformer path (none) under
+     ``launches_on_transformer_paths``, and K3/K4 on each LM2Net-family
+     path (none) under ``launches_on_lm2net_paths``;
+ 41. last line ``{"ok": true, "device": {...}}``.
 Every line is also written to ``chiprun_out/chip_smoke.jsonl``.
 ``--profile`` adds torch.profiler tables of one tile batch and of one
 training step under ``chiprun_out/``, for each glue. fp32 throughout (but
 for the fp64 references of phases 4, 6, 11, 12, 15, 16, 20-23, 26, 27, 30,
-31, 33 and 34),
+31, 33, 34 and 36-38),
 TF32 off for matmuls and convolutions. Phases 14, 19 and 29 run the port's
 own planning and preprocessing on the host (numpy and scipy, 4 threads).
 """
@@ -203,7 +239,7 @@ ROOT = Path(__file__).resolve().parent
 PATCH = (256, 224)
 TILE_BATCH = 4
 TRAIN_BATCH = 12
-TRAIN_STEPS = 4
+TRAIN_STEPS = 3
 KD, N_STATE, K_DIRS = 128, 16, 4
 # (L, scan calls with that L in one forward of M2NetP at 256x224)
 PATH_SHAPES = [(57344, 4), (14336, 8), (3584, 12), (896, 16), (224, 16), (56, 24)]
@@ -355,6 +391,18 @@ def time_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_once(fn):
+    """(``fn()``, the ms of that one call on CUDA events, without a warm-up)."""
+    import torch
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return result, start.elapsed_time(end)
 
 
 def scan_bound(batch, L, kd, n, k):
@@ -690,6 +738,18 @@ def phase_fused_ss2d():
 
 
 @contextlib.contextmanager
+def first_validation_case(trainer):
+    """The trainer's final validation over its fold's first case only (the
+    smoke run's cut: each case takes the same path)."""
+    split = trainer.do_split
+    trainer.do_split = lambda: (lambda tr, val: (tr, val[:1]))(*split())
+    try:
+        yield
+    finally:
+        del trainer.do_split
+
+
+@contextlib.contextmanager
 def ss2d_glue(glue):
     """``NNUZOO_SS2D_FUSED`` as a user sets it, for the models built inside."""
     before = os.environ.get("NNUZOO_SS2D_FUSED")
@@ -703,17 +763,61 @@ def ss2d_glue(glue):
             os.environ["NNUZOO_SS2D_FUSED"] = before
 
 
+# M2NetP's stage layers where a phase runs it shallow (``shallow_m2netp``);
+# None: full depth
+M2NETP_LAYERS = None
+
+
+@contextlib.contextmanager
+def shallow_m2netp(layers=(1, 1, 1, 1)):
+    """``nnUNetTrainerM2NetP`` built at stage layers ``layers`` by the
+    registry inside (the trainer, the Predictor, the command line), for the
+    paths that repeat one that runs at full depth elsewhere."""
+    import functools
+    from nnuzoo_tpu_torch.models import m2net, registry
+    global M2NETP_LAYERS
+    name = "nnUNetTrainerM2NetP"
+    before = registry.get_model_builder(name)
+    registry.MODEL_BUILDERS[name] = functools.partial(
+        m2net.get_m2net_from_plans, small=True, stage_layers=layers)
+    M2NETP_LAYERS = tuple(layers)
+    try:
+        yield
+    finally:
+        registry.MODEL_BUILDERS[name] = before
+        M2NETP_LAYERS = None
+
+
+def shallow_m2netp_scans():
+    """Scan calls of one forward of M2NetP at M2NETP_LAYERS: one an SS2D
+    (the fused glue makes two), counted on the meta device."""
+    import torch
+    from nnuzoo_tpu_torch.models.m2net import M2NetP
+    from nnuzoo_tpu_torch.models.ss2d import SS2D
+    with torch.device("meta"):
+        model = M2NetP(1, 3, stage_layers=M2NETP_LAYERS)
+    return sum(isinstance(m, SS2D) for m in model.modules())
+
+
 def glue_kernels(glue, trainer_name="nnUNetTrainerM2NetP"):
     """(forward kernel wrapper, backward kernel wrapper, launches of each per
     forward of ``trainer_name``'s model at 256x224, the other glue's
     wrappers) of an SS2D glue."""
     from nnuzoo_tpu_torch.ops.cross_scan import cross_scan_bwd, cross_scan_fwd
     from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
+    shallow = trainer_name == "nnUNetTrainerM2NetP" and M2NETP_LAYERS is not None
     if glue == "fused":
-        return cross_scan_fwd, cross_scan_bwd, FUSED_PER_FORWARD, (scan_core,
-                                                                  scan_core_bwd)
-    per_forward = sum(MAMBA_SCANS_2D[trainer_name].values()) \
-        if trainer_name in MAMBA_SCANS_2D else SCANS_PER_FORWARD
+        per_forward = 2 * shallow_m2netp_scans() if shallow else FUSED_PER_FORWARD
+        return cross_scan_fwd, cross_scan_bwd, per_forward, (scan_core,
+                                                             scan_core_bwd)
+    if shallow:
+        per_forward = shallow_m2netp_scans()
+    elif trainer_name in MAMBA_SCANS_2D:
+        per_forward = sum(MAMBA_SCANS_2D[trainer_name].values())
+    elif trainer_name in LM2NET_FAMILY:
+        per_forward = sum(lm2net_scans(trainer_name).values())
+    else:
+        per_forward = SCANS_PER_FORWARD
     return scan_core, scan_core_bwd, per_forward, (cross_scan_fwd, cross_scan_bwd)
 
 
@@ -750,9 +854,16 @@ def plans_and_dataset(target_type="segmentation"):
     return plans, dataset_json
 
 
-def phase_end_to_end(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"):
+def phase_end_to_end(profile, glue="default", trainer_name="nnUNetTrainerM2NetP",
+                     result=None, tile_check=True):
     """Serving with one SS2D glue and the model of ``trainer_name``. Returns
-    the forward kernel's launches of the timed prediction."""
+    the forward kernel's launches of the timed prediction; ``result``, a
+    dict, also gets its seconds, forwards, peak memory and segmentation.
+    ``tile_check``: True holds one tile batch's logits to phase 4's limits
+    against fp64 and the kernel path's mean error to KERNEL_MEAN_RATIO of
+    the fp32 plain path's; "ratio" the latter only (a model whose random
+    weights amplify fp32 rounding past the absolute limits whichever path
+    runs); None leaves the tile batch out."""
     import numpy as np
     import torch
     from nnuzoo_tpu_torch.inference.predictor import Predictor
@@ -780,18 +891,29 @@ def phase_end_to_end(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"
     rng = np.random.RandomState(0)
     volume = (100 * rng.rand(1, 4, 224, 256)).astype(np.float32)
     props = {"spacing": [3.0, 1.0, 1.0]}
+    # the first 4 tiles of the preprocessed volume: the warm-up (one tile
+    # batch with the mirrors, as the prediction runs it) and the tile check
+    data, _ = DefaultPreprocessor().run_case_npy(
+        volume, None, dict(props), pm, cfg, dataset_json)
+    padded, _ = pad_nd_image(data, PATCH)
+    tiles = torch.from_numpy(np.ascontiguousarray(
+        padded[:, :TILE_BATCH, :PATCH[0], :PATCH[1]].transpose(1, 2, 3, 0))).cuda()
 
-    predictor.predict_single_npy_array(volume, dict(props))      # warm-up
+    predictor.tile_forward(tiles)                                 # warm-up
     torch.cuda.synchronize()
     for k in (kernel, *others):
         k.launches = 0
     predictor.forward_count = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     seg = predictor.predict_single_npy_array(volume, dict(props))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, forwards = kernel.launches, predictor.forward_count
     other_launches = sum(k.launches for k in others)
+    if result is not None:
+        result.update(seconds=seconds, forwards=forwards, segmentation=seg,
+                      peak_memory_bytes=torch.cuda.max_memory_allocated())
 
     labels = sorted(int(v) for v in np.unique(seg))
     emit("end_to_end", glue=glue, trainer=trainer_name,
@@ -807,21 +929,27 @@ def phase_end_to_end(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"
                              f"other glue's kernels) for {forwards} forwards, "
                              f"expected {per_forward} per forward")
 
-    # one tile batch (the first 4 tiles of the preprocessed volume) on the
-    # card through the kernel path, the plain path in fp32 and, as the
-    # reference both are held to, the plain path in fp64
-    data, _ = DefaultPreprocessor().run_case_npy(
-        volume, None, dict(props), pm, cfg, dataset_json)
-    padded, _ = pad_nd_image(data, PATCH)
-    tiles = torch.from_numpy(np.ascontiguousarray(
-        padded[:, :TILE_BATCH, :PATCH[0], :PATCH[1]].transpose(1, 2, 3, 0))).cuda()
-    got = predictor.tile_forward(tiles)
-    set_scan_backend(model, "plain")
-    plain = predictor.tile_forward(tiles)
-    set_scan_backend(model, None)
+    if tile_check is None:
+        return launches
+    # the tile batch on the card through the kernel path, the plain path in
+    # fp32 (where the path has scans: else it is the same computation) and,
+    # as the reference both are held to, the plain path in fp64; with the
+    # mirrors for M2NetP at full depth, whose readings sit within 2x of the
+    # limits, else one pass
+    mirrored = trainer_name == "nnUNetTrainerM2NetP" and M2NETP_LAYERS is None
+    check = Predictor(use_mirroring=mirrored, tile_batch_size=TILE_BATCH,
+                      device="cuda")
+    check.manual_initialization(model, [model.state_dict()], pm, cfg,
+                                dataset_json, trainer_name, (0, 1))
+    got = check.tile_forward(tiles)
+    plain = got
+    if per_forward:
+        set_scan_backend(model, "plain")
+        plain = check.tile_forward(tiles)
+        set_scan_backend(model, None)
     model64 = copy.deepcopy(model).double()
     set_scan_backend(model64, "plain")
-    reference = Predictor(use_mirroring=True, tile_batch_size=TILE_BATCH,
+    reference = Predictor(use_mirroring=mirrored, tile_batch_size=TILE_BATCH,
                           device="cuda")
     reference.manual_initialization(model64, [model64.state_dict()], pm, cfg,
                                     dataset_json, trainer_name, (0, 1))
@@ -833,15 +961,22 @@ def phase_end_to_end(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"
         c["argmax_agreement"] = (out.argmax(-1) == want.argmax(-1)).float().mean().item()
         readings[name] = c
     readings["kernel_vs_plain_fp32"] = compare(got, plain)
-    emit("tile_logits", glue=glue, model=type(model).__name__, **readings)
-    for name in ("kernel_vs_fp64", "plain_fp32_vs_fp64"):
+    emit("tile_logits", glue=glue, model=type(model).__name__,
+         trainer=trainer_name, limits=tile_check, mirrored=mirrored,
+         stage_layers=M2NETP_LAYERS if trainer_name == "nnUNetTrainerM2NetP"
+         else None, **readings)
+    if result is not None:
+        result["tile_logits"] = readings
+    for name in ("kernel_vs_fp64", "plain_fp32_vs_fp64") \
+            if tile_check is True else ():
         c = readings[name]
         if not (c["max_abs"] <= TILE_MAX_TOL * c["range_ref"]
                 and c["mean_abs"] <= TILE_MEAN_TOL * c["range_ref"]
                 and c["argmax_agreement"] >= AGREE_MIN):
             raise AssertionError(f"tile logits, {name}: {c}")
     if not (readings["kernel_vs_fp64"]["mean_abs"]
-            <= KERNEL_MEAN_RATIO * readings["plain_fp32_vs_fp64"]["mean_abs"]):
+                           <= KERNEL_MEAN_RATIO
+                           * readings["plain_fp32_vs_fp64"]["mean_abs"]):
         raise AssertionError(f"tile logits: the kernel path is further from "
                              f"fp64 than the fp32 plain path: {readings}")
     if profile and trainer_name == "nnUNetTrainerM2NetP":
@@ -1046,9 +1181,15 @@ def phase_training(profile, glue="default", trainer_name="nnUNetTrainerM2NetP",
     losses = [s["loss"] for s in steps]
     log = trainer.logger.my_fantastic_logging
     counts = {}
-    if trainer_name in MAMBA_SCANS_2D:
+    step_s = float(np.mean([s["seconds"] for s in steps[1:]]))
+    if trainer_name in LM2NET_FAMILY:
+        c = family_counts(trainer.model, trainer_name)
+        counts = dict(parameters=c["parameters"],
+                      step_tflop=TRAIN_BATCH * c["step_flop"] / 1e12,
+                      tflop_per_s=TRAIN_BATCH * c["step_flop"] / step_s / 1e12,
+                      saved_activation_bytes=TRAIN_BATCH * c["saved_bytes"])
+    elif trainer_name in MAMBA_SCANS_2D:
         flop, saved = model_counts(trainer.model, (TRAIN_BATCH, *PATCH, 1), True)
-        step_s = float(np.mean([s["seconds"] for s in steps[1:]]))
         counts = dict(parameters=sum(p.numel() for p in trainer.model.parameters()),
                       step_tflop=flop / 1e12, tflop_per_s=flop / step_s / 1e12,
                       saved_activation_bytes=saved)
@@ -1146,12 +1287,14 @@ def profile_train_step(trainer, data, seg, glue="default"):
          table=table)
 
 
-def step_readings(trainer, model, data_aug, targets):
+def step_readings(trainer, model, data_aug, targets, same_paths=False):
     """Loss and gradients of one training step of ``model`` (DropPath off)
     through the kernel path and the fp32 plain path, each held against the
     plain path in fp64, with the three parameters that carry most of each
     path's squared gradient error and the share that sits in SCAN_PARAMS.
-    Returns the readings by path name and the fp64 loss and gradient norm."""
+    ``same_paths``: the model has no scan kernel on its path, so the plain
+    path is the kernel path's computation and is not run again. Returns the
+    readings by path name and the fp64 loss and gradient norm."""
     import torch
     from nnuzoo_tpu_torch.models.layers import DropPath
     from nnuzoo_tpu_torch.models.ss2d import set_scan_backend
@@ -1176,7 +1319,8 @@ def step_readings(trainer, model, data_aug, targets):
     try:
         for name, backend in (("kernel", None), ("plain_fp32", "plain_pair")):
             set_scan_backend(model, backend)
-            runs[name] = loss_and_grads(model, lambda t: t)
+            runs[name] = runs["kernel"] if same_paths and runs else \
+                loss_and_grads(model, lambda t: t)
         # the fp64 reference: the plain scan pair on a copy of the model in fp64
         model64 = copy.deepcopy(model).double()
         set_scan_backend(model64, "plain_pair")
@@ -1332,7 +1476,7 @@ def phase_step_agreement(trainer, glue="default"):
                              f"plain path's: {readings}")
 
 
-def phase_full_step_agreement(trainer):
+def phase_full_step_agreement(trainer, same_paths=False):
     """The trainer's model at full width and depth (M2Net,
     SwinUMamba, LightMUNet and SegMamba), default glue: one training step's
     loss and gradients from weights drawn from STEP_SEED on the batch of
@@ -1346,7 +1490,8 @@ def phase_full_step_agreement(trainer):
         trainer.plans_manager, trainer.dataset_json, trainer.configuration_manager,
         trainer.num_input_channels, True, device="cuda", seed=STEP_SEED)
     readings, reference = step_readings(
-        trainer, model, *augmented(trainer, *seeded_batch(trainer)))
+        trainer, model, *augmented(trainer, *seeded_batch(trainer)),
+        same_paths=same_paths)
     model_name = type(model).__name__
     del model
     emit("step_agreement", glue="default", model=model_name,
@@ -1561,7 +1706,7 @@ def phase_files_and_validation(trainer, glue="default"):
         return (result, time.perf_counter() - t0, kernel.launches,
                 sum(k.launches for k in others))
 
-    with ss2d_glue(glue):
+    with ss2d_glue(glue), first_validation_case(trainer):
         metrics, seconds, val_launches, other = counted(
             trainer.perform_actual_validation)
     dice = metrics["foreground_mean"]["Dice"]
@@ -1965,7 +2110,15 @@ def phase_cnn_serving(trainer_name, dim):
         volume = (100 * rng.rand(1, 4, 224, 256)).astype(np.float32)
         props = {"spacing": [3.0, 1.0, 1.0]}
 
-    predictor.predict_single_npy_array(volume, dict(props))      # warm-up
+    # the first tile batch of the volume: the warm-up (with the mirrors, as
+    # the prediction runs it) and, for a model without scans, the tile check
+    data, _ = DefaultPreprocessor().run_case_npy(
+        volume, None, dict(props), pm, cfg, dataset_json)
+    padded, _ = pad_nd_image(data, patch)
+    slicers = get_sliding_window_slicers(padded.shape[1:], patch, 0.5)[:tile_batch]
+    tiles = torch.stack([torch.from_numpy(np.ascontiguousarray(padded[sl]))
+                         for sl in slicers]).cuda().movedim(1, -1).contiguous()
+    predictor.tile_forward(tiles)                                 # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_scan_launches()
@@ -1999,16 +2152,15 @@ def phase_cnn_serving(trainer_name, dim):
         # held to their plain versions at these shapes in phase 24
         torch.cuda.empty_cache()
         return launches
-    # the first tile batch of the volume, fp32 against the model in fp64
-    data, _ = DefaultPreprocessor().run_case_npy(
-        volume, None, dict(props), pm, cfg, dataset_json)
-    padded, _ = pad_nd_image(data, patch)
-    slicers = get_sliding_window_slicers(padded.shape[1:], patch, 0.5)[:tile_batch]
-    tiles = torch.stack([torch.from_numpy(np.ascontiguousarray(padded[sl]))
-                         for sl in slicers]).cuda().movedim(1, -1).contiguous()
-    got = predictor.tile_forward(tiles)
+    # the tile batch, fp32 against the model in fp64, one pass without the
+    # mirrors
+    check = Predictor(use_mirroring=False, tile_batch_size=tile_batch,
+                      device="cuda")
+    check.manual_initialization(model, [model.state_dict()], pm, cfg,
+                                dataset_json, trainer_name, axes)
+    got = check.tile_forward(tiles)
     model64 = copy.deepcopy(model).double()
-    reference = Predictor(use_mirroring=True, tile_batch_size=tile_batch,
+    reference = Predictor(use_mirroring=False, tile_batch_size=tile_batch,
                           device="cuda")
     reference.manual_initialization(model64, [model64.state_dict()], pm, cfg,
                                     dataset_json, trainer_name, axes)
@@ -2228,7 +2380,8 @@ def phase_cnn_validation(trainer):
     torch.cuda.reset_peak_memory_stats()
     reset_scan_launches()
     t0 = time.perf_counter()
-    metrics = trainer.perform_actual_validation()
+    with first_validation_case(trainer):
+        metrics = trainer.perform_actual_validation()
     torch.cuda.synchronize()
     seconds, launches = time.perf_counter() - t0, scan_launches()
     dice = metrics["foreground_mean"]["Dice"]
@@ -2595,7 +2748,8 @@ def phase_translation(card):
 
     trainer, launches, _ = phase_training(False, target_type="translation")
     t0 = time.perf_counter()
-    metrics = trainer.perform_actual_validation()
+    with first_validation_case(trainer):
+        metrics = trainer.perform_actual_validation()
     validation_s = time.perf_counter() - t0
     validation = os.path.join(trainer.output_folder, "validation")
     scored = cli(["evaluate_folder", os.path.join(
@@ -2690,21 +2844,24 @@ def mamba_scan_shapes():
                      (56, 6144, 4, TRAIN_BATCH, True)]
 
 
-def phase_mamba_scan_kernels(seed=2000):
+def phase_mamba_scan_kernels(seed=2000, shapes=None, event="mamba_scan_kernel"):
     """K1 (with the chunk carries a backward starts from, and timed also
     without them) and K2 on K1's carries against their plain versions at each
-    shape of ``mamba_scan_shapes``: y, carries and the four gradients to
-    SCAN_TOL / SCAN_BWD_TOL of their max, times and bounds. The plain
+    shape (L, K*Dh, K, batch, steep) of ``shapes`` (those of
+    ``mamba_scan_shapes`` when None): y, carries and the four gradients to
+    SCAN_TOL / SCAN_BWD_TOL of their max, times and bounds; at TILE_BATCH,
+    as serving calls it, K1 alone, timed without the carries. The plain
     versions walk chunks of 256 steps (the plain path's), or of 2048 at
     L > 100,000, where 256-step chunks would take the host minutes of
-    launches; a row names its chunk. Returns the forward and backward
-    rows."""
+    launches; a row names its chunk. The lines are ``event`` and its
+    ``_bwd_kernel`` twin. Returns the forward and backward rows."""
     import torch
     from nnuzoo_tpu_torch.ops.selective_scan import (
         _pick_chunk, scan_core, scan_core_bwd, scan_core_bwd_plain,
         scan_core_plain)
     fwd_rows, bwd_rows = [], []
-    for i, (L, kd, k, b, steep) in enumerate(mamba_scan_shapes(), start=seed):
+    shapes = mamba_scan_shapes() if shapes is None else shapes
+    for i, (L, kd, k, b, steep) in enumerate(shapes, start=seed):
         args, dy = scan_inputs(b, L, kd, N_STATE, k, seed=i, steep=steep)
         chunk = 2048 if L > 100_000 else 256
         with torch.inference_mode():
@@ -2716,44 +2873,48 @@ def phase_mamba_scan_kernels(seed=2000):
             carries_err = (carries - want_carries).abs().max().item()
             carries_scale = want_carries.abs().max().item()
             del want, want_carries
-            ms_carries = time_ms(lambda: scan_core(*args, return_carries=True),
-                                 reps=10)
+            serving = b == TILE_BATCH
+            ms_carries = None if serving else time_ms(
+                lambda: scan_core(*args, return_carries=True), reps=10)
             ms = time_ms(lambda: scan_core(*args), reps=10)
             plain_ms = time_ms(lambda: scan_core_plain(*args, chunk=chunk), reps=1,
                                warmup=0)
         bound_ms, bound_by = scan_bound(b, L, kd, N_STATE, k)
         # "ms" is the training step's call (with the carries), as phase 2's
-        # rows at the training batch are
+        # rows at the training batch are, or at the serving batch serving's
         row = dict(B=b, L=L, KD=kd, K=k, N=N_STATE, steep=steep, max_abs_err=err,
                    rel_err=err / scale,
                    carries_rel_err=carries_err / max(carries_scale, 1e-30),
-                   ms=ms_carries, ms_without_carries=ms, plain_ms=plain_ms,
-                   plain_chunk=chunk, bound_ms=bound_ms, bound_by=bound_by)
-        emit("mamba_scan_kernel", **row)
+                   ms=ms if serving else ms_carries, ms_without_carries=ms,
+                   plain_ms=plain_ms, plain_chunk=chunk, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        emit(event, **row)
         if not (err <= SCAN_TOL * scale
                 and carries_err <= SCAN_TOL * carries_scale):
             raise AssertionError(f"scan kernel disagrees at B={b} L={L} KD={kd} "
                                  f"K={k}: y {err} against {scale}, carries "
                                  f"{carries_err} against {carries_scale}")
         fwd_rows.append(row)
+        if serving:
+            del args, dy, carries
+            continue
         carries = carries if carries.shape[1] > 1 else None
         with torch.inference_mode():
             got = scan_core_bwd(*args, dy, carries)
-            want = scan_core_bwd_plain(*args, dy, chunk=chunk)
-            torch.cuda.synchronize()
+            # the plain version's one call is also its timing
+            want, plain_ms = time_once(
+                lambda: scan_core_bwd_plain(*args, dy, chunk=chunk))
             errs = {name: ((g - w).abs().max().item(), w.abs().max().item())
                     for name, g, w in zip(("du", "ddelta", "dbc", "dA"), got, want)}
             del got, want
             ms = time_ms(lambda: scan_core_bwd(*args, dy, carries), reps=10)
-            plain_ms = time_ms(lambda: scan_core_bwd_plain(*args, dy, chunk=chunk),
-                               reps=1, warmup=0)
         bound_ms, bound_by = scan_bwd_bound(b, L, kd, N_STATE, k)
         row = dict(B=b, L=L, KD=kd, K=k, N=N_STATE, steep=steep,
                    max_abs_err=max(e for e, _ in errs.values()),
                    rel_err={n: e / m for n, (e, m) in errs.items()}, ms=ms,
                    plain_ms=plain_ms, plain_chunk=chunk, bound_ms=bound_ms,
                    bound_by=bound_by)
-        emit("mamba_scan_bwd_kernel", **row)
+        emit(event.replace("_kernel", "_bwd_kernel"), **row)
         for name, (e, m) in errs.items():
             if not e <= SCAN_BWD_TOL * m:
                 raise AssertionError(f"backward scan kernel disagrees at L={L} "
@@ -3056,6 +3217,314 @@ def phase_planned_transformer(card):
     return launches
 
 
+# ----------------------------------------------------------------- the LM2Net family
+# The X²Net hybrids on mini LightMUNets: LM2Net(P) mix with Mamba (K1/K2),
+# LightMamba2Net(P) with Mamba2 on the chunked SSD (matmuls, no scan kernel),
+# or on K1/K2 under NNUZOO_SCAN_BACKEND=mamba1.
+LM2NET = "nnUNetTrainerLM2Net"
+LM2NET_P = "nnUNetTrainerLM2NetP"
+LIGHT_M2 = "nnUNetTrainerLightMamba2Net"
+LIGHT_M2_P = "nnUNetTrainerLightMamba2NetP"
+LM2NET_FAMILY = (LM2NET, LM2NET_P, LIGHT_M2, LIGHT_M2_P)
+# {(L, K*Dh, K): scan calls} of one forward at 256x224, as the CPU tests fix
+# them on the meta device (tests/test_torch_lm2net.py); on the SSD route
+# LightMamba2Net(P) make none
+LM2NET_SCANS_2D = {
+    LM2NET: {(57344, 32, 1): 2, (57344, 64, 1): 2, (14336, 32, 1): 2,
+             (14336, 64, 1): 6, (3584, 32, 1): 2, (3584, 64, 1): 6,
+             (3584, 128, 1): 4, (896, 32, 1): 2, (896, 64, 1): 6,
+             (896, 128, 1): 4, (896, 256, 1): 4, (224, 32, 1): 2,
+             (224, 64, 1): 6, (224, 128, 1): 4, (224, 256, 1): 4, (56, 32, 1): 2,
+             (56, 64, 1): 6, (56, 128, 1): 4, (56, 256, 1): 4, (28, 32, 1): 2,
+             (28, 64, 1): 6, (28, 128, 1): 4, (28, 256, 1): 4},
+    LM2NET_P: {(57344, 64, 1): 4, (14336, 64, 1): 8, (3584, 64, 1): 12,
+               (896, 64, 1): 16, (448, 64, 1): 6, (224, 64, 1): 14,
+               (112, 64, 1): 4, (56, 64, 1): 12, (28, 64, 1): 12},
+    LIGHT_M2: {}, LIGHT_M2_P: {}}
+# LightMamba2Net(P) on the mamba1 route: K=1 over d_inner = 2C channels, N=16
+LM2NET_MAMBA1_SCANS_2D = {
+    LIGHT_M2: {(57344, 32, 1): 4, (14336, 32, 1): 8, (14336, 64, 1): 4,
+               (3584, 32, 1): 8, (3584, 64, 1): 8, (3584, 128, 1): 4,
+               (896, 32, 1): 8, (896, 64, 1): 8, (896, 128, 1): 8,
+               (896, 256, 1): 4, (224, 32, 1): 8, (224, 64, 1): 8,
+               (224, 128, 1): 8, (224, 256, 1): 8, (224, 512, 1): 4,
+               (112, 512, 1): 2, (56, 32, 1): 8, (56, 64, 1): 8, (56, 128, 1): 8,
+               (56, 256, 1): 8, (56, 512, 1): 8, (28, 32, 1): 8, (28, 64, 1): 8,
+               (28, 128, 1): 8, (28, 256, 1): 8, (28, 512, 1): 28},
+    LIGHT_M2_P: {(57344, 64, 1): 4, (14336, 64, 1): 12, (3584, 64, 1): 20,
+                 (896, 64, 1): 28, (224, 64, 1): 36, (112, 64, 1): 2,
+                 (56, 64, 1): 40, (28, 64, 1): 60}}
+# one Mamba2Block (Mamba2 on SSD) against its fp64 twin: output to 1e-4 of
+# its max, each gradient to 1e-3 of its max (PERF.md section 2's block
+# limits); the SSD route against the mamba1 route (K1/K2) as the JAX
+# package's own test holds them: |a - b| <= 2e-3 + 2e-3 |b|
+MAMBA2_ROUTE_TOL = 2e-3
+# LightMamba2Net(P) with random weights amplify fp32 rounding through their
+# stages (CPU, fp64: a 1e-9 change of the input moves a Mamba2 mini's output
+# 20-40 times as much, a Mamba mini's 1.4 times): one tile batch in fp32
+# reads 5-6% of the logits' range off fp64 in mean on either route, and
+# 0.937 (LightMamba2Net) and 0.993 (LightMamba2NetP) in argmax agreement on
+# an H100 80GB HBM3 at 700 W. Their tile batch is held to the ratio rule
+# alone, and the mamba1 route's segmentation of phase 4's volume to the SSD
+# route's by argmax agreement, which read 0.946 there.
+ROUTE_AGREE_MIN = 0.9
+MAMBA2_SHAPE = (TRAIN_BATCH, 57344, 32)    # LightMamba2NetP's stage 1
+CARD_BYTES = 80 * 2 ** 30
+
+
+@contextlib.contextmanager
+def scan_route(route):
+    """``NNUZOO_SCAN_BACKEND`` as a user sets it, for the Mamba2Blocks built
+    inside: "mamba1" puts them on K1/K2, "ssd" (unset) on the SSD."""
+    before = os.environ.get("NNUZOO_SCAN_BACKEND")
+    if route == "mamba1":
+        os.environ["NNUZOO_SCAN_BACKEND"] = "mamba1"
+    else:
+        os.environ.pop("NNUZOO_SCAN_BACKEND", None)
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("NNUZOO_SCAN_BACKEND", None)
+        else:
+            os.environ["NNUZOO_SCAN_BACKEND"] = before
+
+
+def lm2net_scans(trainer_name):
+    """The model's scan table for the route that NNUZOO_SCAN_BACKEND picks."""
+    if os.environ.get("NNUZOO_SCAN_BACKEND") == "mamba1" and \
+            trainer_name in LM2NET_MAMBA1_SCANS_2D:
+        return LM2NET_MAMBA1_SCANS_2D[trainer_name]
+    return LM2NET_SCANS_2D[trainer_name]
+
+
+def lm2net_scan_shapes():
+    """(L, K*Dh, K, batch, steep) of K1/K2 for the LM2Net family: each
+    (L, K*Dh, K) of its tables (both routes) that no earlier phase has, at
+    the training batch with the carries and the backward, and at the serving
+    batch without them; and steep decay at K*Dh 32, a width no earlier
+    phase has."""
+    seen = {(L, KD, K_DIRS) for L, _ in PATH_SHAPES} | \
+        {(L, kd, K_DIRS) for L, kd in M2NET_SCANS} | \
+        {key for table in (MAMBA_SCANS_2D, MAMBA_SCANS_3D)
+         for scans in table.values() for key in scans}
+    keys = sorted({key for table in (LM2NET_SCANS_2D, LM2NET_MAMBA1_SCANS_2D)
+                   for scans in table.values() for key in scans} - seen,
+                  key=lambda k: (-k[0], k[1]))
+    return [key + (b, False) for key in keys for b in (TRAIN_BATCH, TILE_BATCH)] \
+        + [(3000, 32, 1, TRAIN_BATCH, True)]
+
+
+_FAMILY_COUNTS = {}
+
+
+def family_counts(model, trainer_name):
+    """Per sample: the operations of a forward and of a training step and
+    the bytes the forward saves for the backward (``model_counts``' upper
+    bound), counted once a model at batch 1 on a copy of it on its own
+    device (the meta device's shape functions cost the host tens of seconds
+    a model); the three are linear in the batch. The kernels' launch counts
+    are left as they were."""
+    if trainer_name not in _FAMILY_COUNTS:
+        import torch
+        from torch.utils.flop_counter import FlopCounterMode
+        kernels = scan_kernels()
+        launches = [k.launches for k in kernels]
+        twin = copy.deepcopy(model).eval()
+        device = next(twin.parameters()).device
+        x = torch.zeros((1, *PATCH, 1), device=device)
+        saved = [0]
+
+        def pack(t):
+            saved[0] += t.numel() * t.element_size()
+            return t
+
+        with FlopCounterMode(display=False) as forward:
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                outputs = twin(x)
+        with FlopCounterMode(display=False) as backward:
+            sum(o.sum() for o in outputs).backward()
+        fwd = forward.get_total_flops()
+        _FAMILY_COUNTS[trainer_name] = dict(
+            parameters=sum(p.numel() for p in model.parameters()),
+            forward_flop=fwd, step_flop=fwd + backward.get_total_flops(),
+            saved_bytes=saved[0])
+        del twin, outputs
+        for k, n in zip(kernels, launches):
+            k.launches = n
+    return _FAMILY_COUNTS[trainer_name]
+
+
+def phase_mamba2_block():
+    """One Mamba2Block at LightMamba2NetP's stage-1 width (d_model 32, 16
+    heads of 4 channels, d_state 16) over L = 57,344 tokens at batch 12:
+    the SSD route in fp32 against its fp64 twin (output to SS2D_TOL of its
+    max, the input's and every parameter's gradient to SS2D_GRAD_TOL of each
+    one's max), the SSD route against the mamba1 route on K1/K2 (output by
+    MAMBA2_ROUTE_TOL), the forward and backward ms of each route and the
+    peak memory of the SSD route's forward and backward."""
+    import torch
+    from nnuzoo_tpu_torch.models.layers import init_parameters
+    from nnuzoo_tpu_torch.models.light_munet import mamba2_headdim
+    from nnuzoo_tpu_torch.models.mamba import Mamba2Block
+    from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
+    B, L, C = MAMBA2_SHAPE
+    block = Mamba2Block(C, d_state=16, headdim=mamba2_headdim(C), route="ssd")
+    init_parameters(block, torch.Generator().manual_seed(8))
+    block = block.cuda()
+    x = torch.randn(B, L, C, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(9))
+    dout = torch.randn(B, L, C, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(10))
+    names = ["input"] + [n for n, _ in block.named_parameters()]
+
+    def run(module, xin, grad_out):
+        xin = xin.detach().requires_grad_()
+        out = module(xin)
+        grads = torch.autograd.grad(out, [xin] + list(module.parameters()),
+                                    grad_out)
+        return out.detach(), grads
+
+    def fwd_bwd_ms(module):
+        def once():
+            out = module(x.detach().requires_grad_())
+            out.backward(dout)
+        return time_ms(once, reps=3, warmup=1)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, grads = run(block, x, dout)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    twin = copy.deepcopy(block).double()
+    want, want_grads = run(twin, x.double(), dout.double())
+    del twin
+    c = compare(out.double(), want)
+    rel = {n: ((g.double() - w).abs().max() / w.abs().max()).item()
+           for n, g, w in zip(names, grads, want_grads)}
+    del want_grads
+    ssd_ms = fwd_bwd_ms(block)
+    mamba1 = copy.deepcopy(block)
+    mamba1.route = "mamba1"
+    launches = scan_core.launches, scan_core_bwd.launches
+    other, other_grads = run(mamba1, x, dout)
+    launches = (scan_core.launches - launches[0],
+                scan_core_bwd.launches - launches[1])
+    route_err = (other - out).abs()
+    route_ok = bool((route_err <= MAMBA2_ROUTE_TOL * (1 + out.abs())).all())
+    route_rel = {n: ((g - w).abs().max() / w.abs().max()).item()
+                 for n, g, w in zip(names, other_grads, grads)}
+    mamba1_ms = fwd_bwd_ms(mamba1)
+    emit("mamba2_block", shape=[B, L, C], heads=block.nheads,
+         headdim=block.headdim, d_state=block.d_state, ssd_vs_fp64=c,
+         grad_rel_err=rel, ssd_vs_mamba1_max_abs=route_err.max().item(),
+         ssd_vs_mamba1_grad_rel=route_rel, mamba1_launches=list(launches),
+         ssd_fwd_bwd_ms=ssd_ms, mamba1_fwd_bwd_ms=mamba1_ms,
+         ssd_fwd_bwd_peak_bytes=peak)
+    bad = {n: e for n, e in rel.items() if not e <= SS2D_GRAD_TOL}
+    if not c["max_abs"] <= SS2D_TOL * c["max_ref"] or bad:
+        raise AssertionError(f"Mamba2Block on SSD against fp64: {c}, gradients "
+                             f"{bad}")
+    if not route_ok or launches != (1, 1):
+        raise AssertionError(f"Mamba2Block, SSD against mamba1: max abs "
+                             f"{route_err.max().item()}, launches {launches}")
+    del block, mamba1, out, other, grads, other_grads
+    torch.cuda.empty_cache()
+
+
+def phase_lm2net(profile):
+    """The four names at the 2d plan (256x224, batch 12, phase 5's dataset):
+    serving (phase 4's volume and tile batch; the tile readings against
+    fp64 by phase 4's limits for LM2Net(P), by the ratio rule alone for
+    LightMamba2Net(P)) and training (TRAIN_STEPS steps and a validation
+    step), each with TFLOP/s from ``family_counts``; K1/K2 launches a
+    forward and a step as the tables say (none for LightMamba2Net(P) on
+    SSD), no K3/K4 launch; each training run's peak memory within the card
+    without remat; a serving pass of LightMamba2Net on the mamba1 route (K1
+    launches as its table says; its segmentation against the SSD route's by
+    ROUTE_AGREE_MIN); one full-width step of LM2Net (kernel path and fp32
+    plain path) and of LightMamba2Net on SSD against fp64 by phase 16's
+    rule. Returns the launches by path, the K3/K4 launches by name and the
+    routes' argmax agreement."""
+    import numpy as np
+    import torch
+    from nnuzoo_tpu_torch.ops.cross_scan import cross_scan_bwd, cross_scan_fwd
+    launches, cross, segs = {}, {}, {}
+    for name in LM2NET_FAMILY:
+        got = {}
+        before = cross_scan_fwd.launches, cross_scan_bwd.launches
+        launches[f"serving_{name}"] = timed(
+            f"serving {name}", phase_end_to_end, profile, trainer_name=name,
+            result=got,
+            tile_check="ratio" if name in (LIGHT_M2, LIGHT_M2_P) else True)
+        segs[name] = got["segmentation"]
+        torch.cuda.empty_cache()
+        trainer, launches[f"training_{name}"], _ = timed(
+            f"training {name}", phase_training, profile, trainer_name=name)
+        peak = torch.cuda.max_memory_allocated()
+        c = family_counts(trainer.model, name)
+        emit("lm2net_serving", trainer=name, parameters=c["parameters"],
+             seconds_per_volume=got["seconds"], forwards=got["forwards"],
+             tile_tflop=TILE_BATCH * c["forward_flop"] / 1e12,
+             tflop_per_s=TILE_BATCH * c["forward_flop"] * got["forwards"]
+             / got["seconds"] / 1e12,
+             peak_memory_bytes=got["peak_memory_bytes"])
+        if peak > CARD_BYTES or getattr(trainer.model, "remat", False):
+            raise AssertionError(f"{name}: the training run peaked at {peak} "
+                                 f"bytes")
+        if name in (LM2NET, LIGHT_M2):
+            # LightMamba2Net on SSD, its default route: no scan kernel runs,
+            # so its one fp32 path is held to fp64
+            timed(f"step_agreement {name}", phase_full_step_agreement, trainer,
+                  same_paths=name == LIGHT_M2)
+        del trainer
+        torch.cuda.empty_cache()
+        cross[name] = (cross_scan_fwd.launches - before[0]
+                       + cross_scan_bwd.launches - before[1])
+    got = {}
+    with scan_route("mamba1"):
+        launches[f"serving_mamba1_{LIGHT_M2}"] = timed(
+            f"serving mamba1 {LIGHT_M2}", phase_end_to_end, profile,
+            trainer_name=LIGHT_M2, result=got, tile_check=None)
+    agreement = float(np.mean(got["segmentation"] == segs[LIGHT_M2]))
+    emit("lm2net_routes", trainer=LIGHT_M2, argmax_agreement=agreement,
+         limit=ROUTE_AGREE_MIN)
+    if not agreement >= ROUTE_AGREE_MIN:
+        raise AssertionError(f"{LIGHT_M2}: the mamba1 route's segmentation "
+                             f"agrees with the SSD route's on {agreement}")
+    torch.cuda.empty_cache()
+    return launches, cross, agreement
+
+
+def lm2net_entry(fwd_rows, bwd_rows, shared_fwd, shared_bwd, backward,
+                 launches_by_path):
+    """A kernel's LM2Net-family key of the kernels line: for LM2Net(P), and
+    for LightMamba2Net(P) on the mamba1 route, the ms, plain ms and bound of
+    one training step's calls (rows at the training batch of each (L, K*Dh,
+    K), this phase's or the Mamba baselines' where they share a shape,
+    weighted by the model's calls), its launches a step, and the launches on
+    each path of the family."""
+    rows = {(r["L"], r["KD"], r["K"]): r
+            for r in (shared_bwd + bwd_rows if backward else shared_fwd + fwd_rows)
+            if not r["steep"] and r["B"] == TRAIN_BATCH}
+    per_model = {}
+    for tag, table in (("", LM2NET_SCANS_2D), ("_mamba1", LM2NET_MAMBA1_SCANS_2D)):
+        for trainer, scans in table.items():
+            if not scans:
+                continue
+            per_model[trainer + tag] = dict(
+                launches_per_step=sum(scans.values()),
+                **{field: sum(n * rows[key][field] for key, n in scans.items())
+                   for field in ("ms", "plain_ms", "bound_ms")})
+    own = bwd_rows if backward else fwd_rows
+    return {"per": ("one training step of each model: its calls at each "
+                    "(L, K*Dh, K) at B=12 times the row's ms"),
+            "per_model": per_model, "launches_by_path": launches_by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in own), "shapes": own}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3083,72 +3552,95 @@ def main():
          ptxas={name: ptxas_summary(log) for name, log in built.items()},
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    fwd_rows, bwd_rows = phase_scan_kernels()
-    m2_fwd_rows, m2_bwd_rows = phase_scan_kernels("M2Net", seed=1000)
-    phase_blocks()
+    fwd_rows, bwd_rows = timed("scan_kernels", phase_scan_kernels)
+    m2_fwd_rows, m2_bwd_rows = timed("scan_kernels M2Net", phase_scan_kernels,
+                                     "M2Net", seed=1000)
+    timed("blocks", phase_blocks)
     # the Mamba baselines' scan shapes and blocks
-    mamba_fwd_rows, mamba_bwd_rows = phase_mamba_scan_kernels()
-    phase_mamba_blocks()
+    mamba_fwd_rows, mamba_bwd_rows = timed("mamba_scan_kernels",
+                                           phase_mamba_scan_kernels)
+    timed("mamba_blocks", phase_mamba_blocks)
+    # the LM2Net family's new scan shapes, and one Mamba2Block on each route
+    lm2_fwd_rows, lm2_bwd_rows = timed(
+        "lm2net_scan_kernels", phase_mamba_scan_kernels, seed=3000,
+        shapes=lm2net_scan_shapes(), event="lm2net_scan_kernel")
+    timed("mamba2_block", phase_mamba2_block)
     # the Transformer baselines' attention blocks against fp64
     timed("transformer_blocks", phase_transformer_blocks)
     elapsed("kernels and blocks")
-    serving_launches = phase_end_to_end(profile)
+    serving_launches = timed("serving", phase_end_to_end, profile)
     torch.cuda.empty_cache()
-    m2 = {"serving": phase_end_to_end(profile, trainer_name=M2NET)}
+    m2 = {"serving": timed("serving M2Net", phase_end_to_end, profile,
+                           trainer_name=M2NET)}
     torch.cuda.empty_cache()
     mamba = {}
     for name in MAMBA_TRAINERS:
-        mamba[f"serving_2d_{name}"] = phase_end_to_end(profile, trainer_name=name)
+        mamba[f"serving_2d_{name}"] = timed(f"serving {name}", phase_end_to_end,
+                                           profile, trainer_name=name)
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
         os.environ["nnUNet_results"] = os.path.join(tmp, "results")
-        trainer, (fwd_launches, bwd_launches), trained = phase_training(profile)
-        phase_step_agreement(trainer)
-        phase_train_save_predict(trainer, trained)
-        validation_launches, files_launches = phase_files_and_validation(trainer)
+        trainer, (fwd_launches, bwd_launches), trained = timed(
+            "training", phase_training, profile)
+        timed("step_agreement", phase_step_agreement, trainer)
+        timed("train_save_predict", phase_train_save_predict, trainer, trained)
+        validation_launches, files_launches = timed(
+            "files_and_validation", phase_files_and_validation, trainer)
         del trainer, trained
         torch.cuda.empty_cache()
         # M2Net on the same dataset: training, one step against fp64, the
         # fine-tuning trainer from its fold, and a step with remat
-        trainer, m2["training"], _ = phase_training(profile, trainer_name=M2NET)
-        phase_full_step_agreement(trainer)
-        m2["finetune"] = phase_finetune(trainer)
-        m2["remat"] = phase_remat(trainer)
+        trainer, m2["training"], _ = timed("training M2Net", phase_training,
+                                           profile, trainer_name=M2NET)
+        timed("step_agreement M2Net", phase_full_step_agreement, trainer)
+        m2["finetune"] = timed("finetune", phase_finetune, trainer)
+        m2["remat"] = timed("remat", phase_remat, trainer)
         del trainer
         torch.cuda.empty_cache()
         # the Mamba baselines on the same dataset: training, and one step
         # against fp64 for three of them
         for name in MAMBA_TRAINERS:
-            trainer, mamba[f"training_2d_{name}"], _ = phase_training(
-                profile, trainer_name=name)
+            trainer, mamba[f"training_2d_{name}"], _ = timed(
+                f"training {name}", phase_training, profile, trainer_name=name)
             if name in MAMBA_STEP_CHECKED:
-                phase_full_step_agreement(trainer)
+                timed(f"step_agreement {name}", phase_full_step_agreement, trainer)
             del trainer
             torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     elapsed("serving and training, default glue")
 
     # the fused cross-scan glue (NNUZOO_SS2D_FUSED=1): K3 and K4
-    cross_fwd_rows, cross_bwd_rows = phase_cross_scan_kernels()
-    m2_cross_fwd_rows, m2_cross_bwd_rows = phase_cross_scan_kernels("M2Net",
-                                                                    seed=1100)
-    phase_fused_ss2d()
-    fused_serving_launches = phase_end_to_end(profile, "fused")
+    cross_fwd_rows, cross_bwd_rows = timed("cross_scan_kernels",
+                                           phase_cross_scan_kernels)
+    m2_cross_fwd_rows, m2_cross_bwd_rows = timed(
+        "cross_scan_kernels M2Net", phase_cross_scan_kernels, "M2Net", seed=1100)
+    timed("fused_ss2d", phase_fused_ss2d)
+    # M2NetP's fused paths at stage layers (1, 1, 1, 1): they repeat the
+    # default glue's at full depth, and K3/K4 are held to their plain
+    # versions at every full-depth shape above
+    with shallow_m2netp():
+        fused_serving_launches = timed("serving fused", phase_end_to_end,
+                                       profile, "fused")
     torch.cuda.empty_cache()
-    m2["serving_fused"] = phase_end_to_end(profile, "fused", M2NET)
+    m2["serving_fused"] = timed("serving fused M2Net", phase_end_to_end, profile,
+                                "fused", M2NET)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
         os.environ["nnUNet_results"] = os.path.join(tmp, "results")
-        trainer, (k3_launches, k4_launches), _ = phase_training(profile, "fused")
-        phase_step_agreement(trainer, "fused")
-        fused_validation_launches, fused_files_launches = \
-            phase_files_and_validation(trainer, "fused")
+        with shallow_m2netp():
+            trainer, (k3_launches, k4_launches), _ = timed(
+                "training fused", phase_training, profile, "fused")
+            timed("step_agreement fused", phase_step_agreement, trainer, "fused")
+            fused_validation_launches, fused_files_launches = timed(
+                "files_and_validation fused", phase_files_and_validation, trainer,
+                "fused")
         del trainer
         torch.cuda.empty_cache()
-        trainer, m2["training_fused"], _ = phase_training(profile, "fused", M2NET)
-        m2["remat_fused"] = phase_remat(trainer, "fused")
+        trainer, m2["training_fused"], _ = timed(
+            "training fused M2Net", phase_training, profile, "fused", M2NET)
+        m2["remat_fused"] = timed("remat fused", phase_remat, trainer, "fused")
         del trainer
     torch.cuda.empty_cache()
     elapsed("fused glue")
@@ -3159,18 +3651,19 @@ def main():
         for var in ("nnUNet_raw", "nnUNet_preprocessed", "nnUNet_results"):
             os.environ[var] = os.path.join(tmp, var)
             os.makedirs(os.environ[var])
-        planned_fwd_launches, planned_bwd_launches = phase_planned_dataset(card)
+        planned_fwd_launches, planned_bwd_launches = timed(
+            "planned_dataset", phase_planned_dataset, card)
         torch.cuda.empty_cache()
         # UNETR through the command line on the same 2d plan
         transformer = {"planned_2d": timed("planned_transformer",
                                            phase_planned_transformer, card)}
         torch.cuda.empty_cache()
         # the same raw dataset at 3d: PlainConvUNet and ResidualEncoderUNet
-        cnn = {"planned_3d": phase_planned_3d(card)}
+        cnn = {"planned_3d": timed("planned_3d", phase_planned_3d, card)}
         torch.cuda.empty_cache()
         # and the cascade on its 3d_fullres plan: 3d_lowres, the next-stage
         # export, 3d_cascade_fullres with the cascade augmentation
-        cnn["cascade"] = phase_cascade(card)
+        cnn["cascade"] = timed("cascade", phase_cascade, card)
     torch.cuda.empty_cache()
     elapsed("raw dataset, 3d planning and cascade")
 
@@ -3178,33 +3671,42 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
         os.environ["nnUNet_results"] = os.path.join(tmp, "results")
-        translation_launches = phase_translation(card)
+        # M2NetP at stage layers (1, 1, 1, 1): phase 5 trains it at full depth
+        with shallow_m2netp():
+            translation_launches = timed("translation", phase_translation, card)
     torch.cuda.empty_cache()
     elapsed("translation")
 
     # the nnU-Net CNN baselines at full width, whose paths launch no scan
     # kernel: 3d_fullres serving, training, one step against fp64 and the
     # final validation; 2d PlainConvUNet, U2NetP and U2Net serving and training
-    cnn["serving_3d"] = phase_cnn_serving(CNN, 3)
+    cnn["serving_3d"] = timed("serving_3d cnn", phase_cnn_serving, CNN, 3)
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
         os.environ["nnUNet_results"] = os.path.join(tmp, "results")
-        trainer, cnn["training_3d"], batch = phase_cnn_training(CNN, 3)
-        cnn["validation_3d"] = phase_cnn_validation(trainer)
-        phase_cnn_step_agreement(trainer)
-        emit("cnn_profile", trainer=CNN, dim=3, **profile_cnn_step(trainer, *batch))
+        trainer, cnn["training_3d"], batch = timed("training_3d cnn",
+                                                   phase_cnn_training, CNN, 3)
+        cnn["validation_3d"] = timed("validation_3d cnn", phase_cnn_validation,
+                                     trainer)
+        timed("step_agreement_3d cnn", phase_cnn_step_agreement, trainer)
+        emit("cnn_profile", trainer=CNN, dim=3, **timed(
+            "profile_3d cnn", profile_cnn_step, trainer, *batch))
         del trainer, batch
         torch.cuda.empty_cache()
         for name in (CNN,) + U2NETS:
-            cnn[f"serving_2d_{name}"] = phase_cnn_serving(name, 2)
-            trainer, cnn[f"training_2d_{name}"], _ = phase_cnn_training(name, 2)
+            cnn[f"serving_2d_{name}"] = timed(f"serving_2d {name}",
+                                               phase_cnn_serving, name, 2)
+            trainer, cnn[f"training_2d_{name}"], _ = timed(
+                f"training_2d {name}", phase_cnn_training, name, 2)
             del trainer
             torch.cuda.empty_cache()
         # LightMUNet and SegMamba at 3d_fullres on the same plan and dataset
         for name in MAMBA_SCANS_3D:
-            mamba[f"serving_3d_{name}"] = phase_cnn_serving(name, 3)
+            mamba[f"serving_3d_{name}"] = timed(f"serving_3d {name}",
+                                                 phase_cnn_serving, name, 3)
             torch.cuda.empty_cache()
-            trainer, mamba[f"training_3d_{name}"], _ = phase_cnn_training(name, 3)
+            trainer, mamba[f"training_3d_{name}"], _ = timed(
+                f"training_3d {name}", phase_cnn_training, name, 3)
             del trainer
             torch.cuda.empty_cache()
         elapsed("CNN and Mamba baselines")
@@ -3229,6 +3731,15 @@ def main():
             torch.cuda.empty_cache()
         elapsed("Transformer baselines")
 
+    # the LM2Net family at 2d: serving, training, the mamba1 route and two
+    # steps against fp64
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
+        os.environ["nnUNet_results"] = os.path.join(tmp, "results")
+        lm2, lm2_cross, route_agreement = phase_lm2net(profile)
+    torch.cuda.empty_cache()
+    elapsed("LM2Net family")
+
     # one training step's scan work: the per-shape numbers at the training
     # batch weighted by the calls of each shape
     weight = dict(PATH_SHAPES)
@@ -3238,7 +3749,8 @@ def main():
     fused_per = (f"one training step with the fused glue: {FUSED_PER_FORWARD} "
                  f"launches at B={TRAIN_BATCH}, {SCANS_PER_FORWARD} in each "
                  f"orientation; 'launches' counts the fused training run "
-                 f"({TRAIN_STEPS} steps and one validation step)")
+                 f"({TRAIN_STEPS} steps and one validation step) of M2NetP at "
+                 f"stage layers (1, 1, 1, 1)")
     cross = dict(G=CROSS_G, Dh=CROSS_DH, R=CROSS_R)
     m2_per = (f"M2Net: one training step, {SCANS_PER_FORWARD} launches at "
               f"B={TRAIN_BATCH} over its (L, K*Dh) pairs (K3/K4: (L, Dh, R) in "
@@ -3266,7 +3778,12 @@ def main():
                      mamba=mamba_entry(
                          mamba_fwd_rows, mamba_bwd_rows, False,
                          {k: v[0] if isinstance(v, tuple) else v
-                          for k, v in mamba.items()})),
+                          for k, v in mamba.items()}),
+                     lm2net=lm2net_entry(
+                         lm2_fwd_rows, lm2_bwd_rows, mamba_fwd_rows,
+                         mamba_bwd_rows, False,
+                         {k: v[0] if isinstance(v, tuple) else v
+                          for k, v in lm2.items()})),
         kernel_entry("selective_scan_bwd",
                      "nnuzoo_tpu_torch/csrc/selective_scan_bwd.cu",
                      "nnuzoo_tpu/ops/selective_scan.py:915", bwd_launches,
@@ -3283,6 +3800,11 @@ def main():
                      mamba=mamba_entry(
                          mamba_fwd_rows, mamba_bwd_rows, True,
                          {k: v[1] for k, v in mamba.items()
+                          if isinstance(v, tuple)}),
+                     lm2net=lm2net_entry(
+                         lm2_fwd_rows, lm2_bwd_rows, mamba_fwd_rows,
+                         mamba_bwd_rows, True,
+                         {k: v[1] for k, v in lm2.items()
                           if isinstance(v, tuple)})),
         kernel_entry("cross_scan_fwd",
                      "nnuzoo_tpu_torch/csrc/cross_scan_fwd.cu",
@@ -3321,6 +3843,17 @@ def main():
         # none
         entry["launches_on_cnn_paths"] = cnn
         entry["launches_on_transformer_paths"] = transformer
+    for entry in kernels[2:]:
+        # K3 and K4 together on each path of the LM2Net family: none
+        entry["launches_on_lm2net_paths"] = lm2_cross
+    if any(lm2_cross.values()):
+        raise AssertionError(f"K3/K4 launched on the LM2Net paths: {lm2_cross}")
+    # LightMamba2Net(P) on the SSD route launch no scan kernel
+    ssd_paths = {k: v for k, v in lm2.items()
+                 if k.endswith((LIGHT_M2, LIGHT_M2_P)) and "mamba1" not in k}
+    if any(n for v in ssd_paths.values()
+           for n in (v if isinstance(v, tuple) else (v,))):
+        raise AssertionError(f"scan kernels launched on the SSD route: {ssd_paths}")
     if any(cnn.values()):
         raise AssertionError(f"scan kernels launched on the CNN paths: {cnn}")
     if any(transformer.values()):
@@ -3334,6 +3867,8 @@ def main():
            *m2["training"], *m2["finetune"], m2["remat"], m2["serving_fused"],
            *m2["training_fused"], m2["remat_fused"],
            *(n for v in mamba.values()
+             for n in (v if isinstance(v, tuple) else (v,))),
+           *(n for k, v in lm2.items() if k not in ssd_paths
              for n in (v if isinstance(v, tuple) else (v,)))) <= 0:
         raise AssertionError("a kernel of the main paths was never launched")
     out(json.dumps({"kernels": kernels}))

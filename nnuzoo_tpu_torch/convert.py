@@ -16,7 +16,9 @@ the flattened flax tree:
   (``x_proj_weight``, ``dt_projs_weight``, ``dt_projs_bias``, ``A_logs``,
   ``Ds``), a Mamba scan branch's (``conv1d_weight`` (d_conv, d_inner),
   ``conv1d_bias``, ``dt_proj_weight`` (d_inner, R), ``dt_proj_bias``,
-  ``A_log`` (d_inner, N), ``D``), ``skip_scale``, UNETR's ``pos_embed`` (1,
+  ``A_log`` (d_inner, N), ``D``), a Mamba2Block's (``conv1d_weight``
+  (d_conv, d_inner + 2N), ``conv1d_bias``, ``A_log``, ``dt_bias`` and ``D``
+  (nheads,), ``norm_weight`` (d_inner,)), ``skip_scale``, UNETR's ``pos_embed`` (1,
   tokens, hidden), a window attention's ``relative_position_bias_table``
   (prod(2w-1), heads), and RMSNorm's ``weight``, whose flax name is
   ``weight``; norms without scale or bias (SegMamba's and

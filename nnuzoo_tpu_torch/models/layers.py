@@ -187,10 +187,34 @@ def resize_linear(x: torch.Tensor, new_spatial: Sequence[int],
     return y.movedim(1, -1)
 
 
-def max_pool(x: torch.Tensor, window: int, dim: int = 2) -> torch.Tensor:
-    """Non-overlapping max pool of (B, *spatial, C) (floor at odd edges)."""
-    pool = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}[dim]
-    return pool(x.movedim(-1, 1), window, window).movedim(1, -1)
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def max_pool(x: torch.Tensor, window, dim: int = 2) -> torch.Tensor:
+    """Non-overlapping max pool of (B, *spatial, C) (floor at odd edges);
+    ``window`` an int or one per spatial axis."""
+    w = tup(window, dim)
+    return _MAX_POOL[dim](x.movedim(-1, 1), w, w).movedim(1, -1)
+
+
+def max_pool_ceil(x: torch.Tensor, window, dim: int = 2) -> torch.Tensor:
+    """:func:`max_pool` with ceil mode: an edge the window does not divide
+    pools what is there (the JAX package pads it with -inf first)."""
+    w = tup(window, dim)
+    return _MAX_POOL[dim](x.movedim(-1, 1), w, w, ceil_mode=True).movedim(1, -1)
+
+
+def resize_nearest(x: torch.Tensor, new_spatial: Sequence[int]) -> torch.Tensor:
+    """``jax.image.resize(x, ..., "nearest")`` of (B, *spatial, C): output
+    index i of an axis of n reads input floor((i + 1/2) n / m), computed
+    exactly. (``F.interpolate``'s "nearest" reads floor(i n / m): 7 -> 4
+    reads [0, 1, 3, 5] where JAX reads [0, 2, 4, 6].)"""
+    for axis, (n, m) in enumerate(zip(x.shape[1:-1], new_spatial)):
+        if n != m:
+            idx = torch.tensor([(2 * i + 1) * n // (2 * m) for i in range(m)],
+                               device=x.device)
+            x = x.index_select(axis + 1, idx)
+    return x
 
 
 def pad_to_match(x: torch.Tensor, target_spatial: Sequence[int]) -> torch.Tensor:

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from .._device import resolve_device
 from .layers import CONV, build_seeded, conv_cl, instance_norm_cl, max_pool, \
     resize_linear
-from .mamba import MambaBlock
+from .mamba import Mamba2Block, MambaBlock
 from .registry import register_model
 from .ss2d import SS2D
 
@@ -98,19 +98,19 @@ def _permutation(order: Optional[Sequence[int]], dim: int):
 class MambaLayer(nn.Module):
     """LN -> Mamba over the flattened tokens -> skip-scaled residual -> the
     same LN again -> Linear, the spatial axes taken in ``order``. With
-    ``use_ss2d`` the mixer is an SS2D over the 2d map instead."""
+    ``use_ss2d`` the mixer is an SS2D over the 2d map instead; with
+    ``use_mamba2`` a Mamba2Block (d_state 16, :func:`mamba2_headdim`)."""
 
     def __init__(self, input_dim: int, output_dim: int, use_ss2d: bool = False,
                  use_mamba2: bool = False):
         super().__init__()
-        if use_mamba2:
-            raise NotImplementedError(
-                "MambaLayer(use_mamba2=True) runs Mamba2Block, which is not in "
-                "nnuzoo_tpu_torch yet: it comes with the X2Net slice (lm2net)")
         self.use_ss2d = use_ss2d
         self.norm = nn.LayerNorm(input_dim, eps=1e-6)
         if use_ss2d:
             self.ss2d = SS2D(d_model=input_dim)
+        elif use_mamba2:
+            self.mamba = Mamba2Block(d_model=input_dim, d_state=16,
+                                     headdim=mamba2_headdim(input_dim))
         else:
             self.mamba = MambaBlock(d_model=input_dim)
         self.skip_scale = nn.Parameter(torch.ones(1))

@@ -23,7 +23,7 @@ from .._device import resolve_device
 from ..ops.cross_scan import cross_scan_fwd_op
 from ..ops.selective_scan import scan_core_fwd_op
 from .layers import DropPath, build_seeded, conv_cl, lecun_normal_, \
-    pad_to_match, resize_linear, set_drop_path_generator
+    max_pool_ceil, pad_to_match, resize_linear, set_drop_path_generator
 from .registry import register_model
 from .u2net import RSU4F
 from .vssm import MU, PatchExpand, PatchMerging2D
@@ -76,8 +76,7 @@ def remat_stage(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 def _maxpool2_ceil(x: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 max pool with ceil mode (odd edges pool what is there)."""
-    y = nn.functional.max_pool2d(x.permute(0, 3, 1, 2), 2, 2, ceil_mode=True)
-    return y.permute(0, 2, 3, 1)
+    return max_pool_ceil(x, 2, 2)
 
 
 class _DistributedOutConv(nn.Module):
@@ -85,13 +84,13 @@ class _DistributedOutConv(nn.Module):
     ``sum_i upsample(d_i @ W_i) + b``; the 1x1 conv and the bilinear resize
     commute, so each slice W_i is applied at its side's native resolution.
     The weight keeps the layout of the 1x1 conv it replaces,
-    (nc, n_sides*nc, 1, 1)."""
+    (nc, n_sides*nc, 1, 1) at 2d and (nc, n_sides*nc, 1, 1, 1) at 3d."""
 
-    def __init__(self, num_classes: int, n_sides: int = 6):
+    def __init__(self, num_classes: int, n_sides: int = 6, dim: int = 2):
         super().__init__()
-        self.num_classes = num_classes
+        self.num_classes, self.dim = num_classes, dim
         self.weight = nn.Parameter(torch.empty(num_classes, n_sides * num_classes,
-                                               1, 1))
+                                               *(1,) * dim))
         self.bias = nn.Parameter(torch.empty(num_classes))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -104,8 +103,9 @@ class _DistributedOutConv(nn.Module):
         nc = self.num_classes
         out = None
         for i, d in enumerate(sides):
-            e = nn.functional.linear(d, self.weight[:, i * nc:(i + 1) * nc, 0, 0])
-            e = resize_linear(e, full_res, 2)
+            e = nn.functional.linear(
+                d, self.weight[:, i * nc:(i + 1) * nc].reshape(nc, nc))
+            e = resize_linear(e, full_res, self.dim)
             out = e if out is None else out + e
         return out + self.bias
 

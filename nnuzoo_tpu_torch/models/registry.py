@@ -8,9 +8,11 @@ the Mamba baselines ``nnUNetTrainerSwinUMamba``,
 ``nnUNetTrainerSwinUMambaD``, ``nnUNetTrainerLightMUNet``,
 ``nnUNetTrainerLightSS2DMambaUNet`` and ``nnUNetTrainerSegMamba``, the
 Transformer baselines ``nnUNetTrainerUNETR``,
-``nnUNetTrainerSwinTransformerUnet`` and ``nnUNetTrainerSwUNETR``, and each
-of them with a ``_05Percent`` .. ``_75Percent`` suffix, which builds the
-base name's model).
+``nnUNetTrainerSwinTransformerUnet`` and ``nnUNetTrainerSwUNETR``, the
+LM2Net family ``nnUNetTrainerLM2Net``, ``nnUNetTrainerLM2NetP``,
+``nnUNetTrainerLightMamba2Net`` and ``nnUNetTrainerLightMamba2NetP``, and
+each of them with a ``_05Percent`` .. ``_75Percent`` suffix, which builds
+the base name's model).
 
     builder(plans_manager, dataset_json, configuration_manager,
             num_input_channels, deep_supervision=True, device="cuda",
@@ -63,8 +65,8 @@ def register_model(trainer_names, builder: Callable) -> None:
 
 
 def get_model_builder(trainer_name: str) -> Callable:
-    from . import (light_munet, m2net, seg_mamba, swin_umamba,  # noqa: F401
-                   swt, u2net, unetr)  # (register their trainer names)
+    from . import (light_munet, lm2net, m2net, seg_mamba,  # noqa: F401
+                   swin_umamba, swt, u2net, unetr)  # (register their names)
     if trainer_name in MODEL_BUILDERS:
         return MODEL_BUILDERS[trainer_name]
     # the data-fraction variants (nnUNetTrainer_25Percent ..) build the base model

@@ -104,8 +104,17 @@ def test_orders_and_head_dim_rule_match_jax():
         assert x.permute(perm[0]).shape[1:4] == tuple(x.shape[1 + o] for o in order)
 
 
-def test_mamba2_raises_and_names_the_slice():
-    with pytest.raises(NotImplementedError, match="X2Net"):
+def test_mamba2_raises_and_names_the_slice(monkeypatch):
+    """MambaLayer(use_mamba2=True) builds a Mamba2Block (d_state 16, the
+    head width rule) on the route that NNUZOO_SCAN_BACKEND names, and
+    raises on a value it does not know, naming the variable."""
+    from nnuzoo_tpu_torch.models.mamba import Mamba2Block
+    monkeypatch.setenv("NNUZOO_SCAN_BACKEND", "mamba1")
+    layer = tl.MambaLayer(8, 8, use_mamba2=True)
+    assert isinstance(layer.mamba, Mamba2Block) and layer.mamba.route == "mamba1"
+    assert (layer.mamba.d_state, layer.mamba.headdim) == (16, tl.mamba2_headdim(8))
+    monkeypatch.setenv("NNUZOO_SCAN_BACKEND", "mamba3")
+    with pytest.raises(ValueError, match="NNUZOO_SCAN_BACKEND"):
         tl.MambaLayer(8, 8, use_mamba2=True)
     with pytest.raises(ValueError, match="2D-only"):
         tl.LightMUNet(1, NC, 3, use_ss2d=True)

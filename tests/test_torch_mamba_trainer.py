@@ -17,8 +17,8 @@ largest entry plus 1e-5 of the largest entry of all; AdamW's update to 2%
 of lr, but for entries whose gradient is so small that eps decides it
 (within 2.05 lr). Also: the deep-supervision scales against the JAX
 trainer's probe, the registry's names with their data fractions,
-``use_mamba2`` raising, and the fused SS2D glue raising where its kernels
-cannot take the widths.
+``use_mamba2`` raising on an unknown ``NNUZOO_SCAN_BACKEND``, and the fused
+SS2D glue raising where its kernels cannot take the widths.
 """
 
 import dataclasses
@@ -232,11 +232,19 @@ def test_registry_names_and_data_fractions():
         registry.get_model_builder("nnUNetTrainerSwT2Net")
 
 
-def test_mamba2_layer_raises():
+def test_mamba2_layer_raises(monkeypatch):
+    """Mamba2 layers are built (the LM2Net family's), on SSD unless
+    NNUZOO_SCAN_BACKEND says mamba1; a value it does not know raises."""
     from nnuzoo_tpu_torch.models.light_munet import MambaLayer, ResMambaBlock
-    with pytest.raises(NotImplementedError, match="X2Net"):
+    from nnuzoo_tpu_torch.models.mamba import Mamba2Block
+    monkeypatch.delenv("NNUZOO_SCAN_BACKEND", raising=False)
+    block = ResMambaBlock(32, 2, (0, 1), use_mamba2=True)
+    assert isinstance(block.mamba1.mamba, Mamba2Block)
+    assert block.mamba2.mamba.route == "ssd"
+    monkeypatch.setenv("NNUZOO_SCAN_BACKEND", "bogus")
+    with pytest.raises(ValueError, match="NNUZOO_SCAN_BACKEND"):
         MambaLayer(32, 32, use_mamba2=True)
-    with pytest.raises(NotImplementedError, match="X2Net"):
+    with pytest.raises(ValueError, match="NNUZOO_SCAN_BACKEND"):
         ResMambaBlock(32, 2, (0, 1), use_mamba2=True)
 
 

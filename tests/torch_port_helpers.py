@@ -45,6 +45,10 @@ def _leaf_value(rng, path, shape):
         return -3.0 + 0.5 * rng.randn(*shape)
     if leaf == "A_log":                                  # (d_inner, N)
         return np.log(np.arange(1, shape[-1] + 1)) + 0.1 * rng.randn(*shape)
+    if leaf == "dt_bias":                                # Mamba2's (nheads,)
+        return -3.0 + 0.5 * rng.randn(*shape)
+    if leaf == "norm_weight":                            # Mamba2's RMSNorm
+        return 1.0 + 0.1 * rng.randn(*shape)
     if leaf in ("relative_position_bias_table", "pos_embed"):
         # larger than their 0.02 initialisation, so that a misplaced entry shows
         return 0.5 * rng.randn(*shape)
