@@ -27,7 +27,7 @@ Phases, one line each (a failure anywhere exits non-zero):
   5. training end to end: a seeded preprocessed 2d dataset is written to a
      temporary folder and ``Trainer(...).run_training()`` of
      ``nnUNetTrainerM2NetP`` (full depth, patch 256x224, batch 12) takes one
-     epoch of TRAIN_STEPS (3) steps and 1 validation step (so do the other
+     epoch of TRAIN_STEPS (2) steps and 1 validation step (so do the other
      training phases); the losses, seconds per step,
      scan launches per step and peak memory;
   6. one training step's loss and gradients, kernel path and fp32 plain path
@@ -74,7 +74,7 @@ Phases, one line each (a failure anywhere exits non-zero):
      4x256x224, ``.nii``) planned and preprocessed by the command line's
      ``plan_and_preprocess`` (the 2d plan must be patch [256, 224] at batch
      12, every case's ``class_locations`` must hold labels 1 and 2), then
-     ``run_training`` at full depth on fold 0 (one epoch of 3 steps and one
+     ``run_training`` at full depth on fold 0 (one epoch of 2 steps and one
      validation step, 80 K1 and 80 K2 launches a step) with its final
      validation, ``predict_from_modelfolder`` on the test images and
      ``evaluate_simple`` against their labels; seconds of fingerprint,
@@ -84,9 +84,8 @@ Phases, one line each (a failure anywhere exits non-zero):
      serving and tile-batch checks, 80 K1 or 160 K3 launches a forward;
  16. M2Net training, each glue (after phase 8, and after phase 13): phase
      5 on phase 5's dataset, 80 K1 and 80 K2 or 160 K3 and 160 K4 launches
-     a step; with the default glue one full-depth step on seeded weights
-     against fp64, held to phase 6's full-depth rule (the kernel path's
-     error norm within 3x the fp32 plain path's);
+     a step (the family's full-depth step against fp64 is M2NetP's, phase
+     6);
  17. the fine-tuning trainer (``nnUNetTrainerFineTuneDecoderWarmUp``,
      M2Net) from phase 16's fold through ``load_pretrained_weights``: 2
      steps with the encoder frozen, every frozen parameter bit for bit the
@@ -100,7 +99,7 @@ Phases, one line each (a failure anywhere exits non-zero):
      3d_fullres 0`` with the default trainer (``nnUNetTrainer``,
      PlainConvUNet, SGD) and with ``-tr nnUNetTrainerResEncUNet -p
      nnUNetResEncUNetPlans`` (ResidualEncoderUNet), each cut to one epoch of
-     3 steps and one validation step, with the final validation, then
+     2 steps and one validation step, with the final validation, then
      ``predict_from_modelfolder`` and ``evaluate_simple`` on the test
      cases; seconds per step and Dice;
  20. ``nnUNetTrainer`` at 3d_fullres at full width
@@ -110,11 +109,11 @@ Phases, one line each (a failure anywhere exits non-zero):
      batch 2), seconds per volume, one tile batch's logits against the
      model in fp64 by phase 4's limits;
  21. the same model training: ``run_training`` on three seeded preprocessed
-     1x80x256x256 cases (3 steps at batch 2, SGD and poly, one validation
+     1x80x256x256 cases (2 steps at batch 2, SGD and poly, one validation
      step), its final validation, one step's loss and gradient against fp64
      (CNN_STEP_LIMITS), and one profiled step for the device's busy share;
  22. ``nnUNetTrainer`` at 2d at full width (benchmarks/bench_inference.py's
-     PlainConvUNet, 256x224): phase 4's serving and tile check, 3 training
+     PlainConvUNet, 256x224): phase 4's serving and tile check, 2 training
      steps at batch 12 on phase 5's dataset;
  23. ``nnUNetTrainerU2NetP`` and ``nnUNetTrainerU2Net`` at 256x224: phase
      22 again for each;
@@ -132,16 +131,17 @@ Phases, one line each (a failure anywhere exits non-zero):
  26. serving each of the five Mamba trainers at full width with seeded
      weights (after phase 15): phase 4's volume, settings and tile-batch
      check, K1 launches a forward as the CPU tests' scan tables count them;
- 27. training each of them (after phase 16, on phase 5's dataset): 3 steps
+ 27. training each of them (after phase 16, on phase 5's dataset): 2 steps
      at batch 12 and a validation step, K1 and K2 launches a step, peak
-     memory; one full-width step against fp64 for SwinUMamba, LightMUNet
-     and SegMamba by phase 16's rule;
+     memory; one full-width step against fp64 for SegMamba (one model of
+     the family) by phase 16's rule;
  28. LightMUNet and SegMamba at 3d_fullres on phase 20-21's plan and
-     dataset (after phase 23): serving the 1x64x256x256 volume and 3
+     dataset (after phase 23): serving one tile of the plan
+     (1x48x192x192, mirror TTA over 3 axes) and 2
      training steps at batch 2, seconds, peak memory and launches;
  29. the nnU-Net cascade on phase 14's raw dataset, after phase 19:
      ``add_lowres_and_cascade``, ``preprocess -c 3d_lowres``, ``train <id>
-     3d_lowres all`` (PlainConvUNet at the planner's widths, 3 steps and a
+     3d_lowres all`` (PlainConvUNet at the planner's widths, 2 steps and a
      validation step; its final validation writes
      ``predicted_next_stage/3d_cascade_fullres/``), ``train <id>
      3d_cascade_fullres 0`` with the cascade augmentation on the card and
@@ -154,7 +154,7 @@ Phases, one line each (a failure anywhere exits non-zero):
      bit;
  30. the translation target: ``nnUNetTrainerM2NetP`` at full width and
      stage layers (1, 1, 1, 1) (phase 5 trains it at full depth) on a seeded
-     2d dataset of float targets (phase 5's shapes, batch 12), 3 steps with
+     2d dataset of float targets (phase 5's shapes, batch 12), 2 steps with
      8 K1 and 8 K2 launches each, its final validation
      and ``evaluate_folder`` with the regression metrics, and the step at
      stage layers (1, 1, 1, 1) against fp64 on six seeded batches, the
@@ -168,16 +168,16 @@ Phases, one line each (a failure anywhere exits non-zero):
      channels, 3 heads, 24x96x96 padded to 28x98x98, batch 2);
  32. ``nnUNetTrainerUNETR`` through the command line on phase 14's raw
      dataset and 2d plan (after phase 14): ``train <id> 2d 0 -tr
-     nnUNetTrainerUNETR`` (one epoch of 3 steps and one validation step)
+     nnUNetTrainerUNETR`` (one epoch of 2 steps and one validation step)
      with its final validation, ``predict_from_modelfolder`` and
      ``evaluate_simple``; seconds a step, peak memory, Dice;
  33. ``nnUNetTrainerUNETR``, ``nnUNetTrainerSwinTransformerUnet`` and
      ``nnUNetTrainerSwUNETR`` at 2d at full width (after phase 28): phase
-     22's serving and tile check, 3 training steps at batch 12 on phase 5's
+     22's serving and tile check, 2 training steps at batch 12 on phase 5's
      dataset, and one full-width step against fp64
      (TRANSFORMER_STEP_LIMITS);
  34. UNETR and SwinUNETR at 3d_fullres on phase 20-21's plan and dataset:
-     serving the 1x64x256x256 volume (with the tile check) and 3 training
+     serving the 1x64x256x256 volume (with the tile check) and 2 training
      steps at batch 2;
      phases 31-34 print seconds, peak memory, TFLOP/s and the launches of
      K1-K4, which must be none;
@@ -198,29 +198,69 @@ Phases, one line each (a failure anywhere exits non-zero):
      held to the ratio rule alone: their random weights amplify fp32
      rounding past the absolute limits), K1 launches a forward as the CPU
      tests' tables count them (none on SSD), none of K3/K4, TFLOP/s;
- 38. training each of them on phase 5's dataset (3 steps at batch 12 and a
+ 38. training each of them on phase 5's dataset (2 steps at batch 12 and a
      validation step, K1/K2 launches a step, peak memory within the card
-     without remat, TFLOP/s), one full-width step of LM2Net (kernel and
-     fp32 plain paths) and of LightMamba2Net (SSD) against fp64 by phase
-     16's rule;
+     without remat, TFLOP/s), one step of LM2Net (kernel and fp32 plain
+     paths) and of LightMamba2Net (SSD) at full width with the stage minis
+     at two levels against fp64 by phase 16's rule;
  39. LightMamba2Net's serving again on the mamba1 route
      (``NNUZOO_SCAN_BACKEND=mamba1``): 202 K1 launches a forward, its
      segmentation in argmax agreement with the SSD route's (ROUTE_AGREE_MIN);
- 40. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
+ 40. the SSND2Net family (SSND2Net, SSND2NetP), after phase 36: K1 (with
+     the carries at batch 12, without them at batch 4; at 3d batch 2, timed
+     both ways) and K2 against their plain versions at every (L, K*Dh, K)
+     of SSND2NET_SCANS that no earlier phase has (K=4 with K*Dh up to 2048
+     at 2d; K=6 with K*Dh 192-3072 and L up to 1,769,472 at 3d), and on
+     steep decay at K=6;
+ 41. one SSND against its plain path (output and every gradient): d_model
+     16 over 2x256x224 and d_model 128 over 2x32x28 on each glue, d_model
+     16 over 2x48x192x192 on each glue (K=6 on K1/K2, G=3 on K3/K4);
+ 42. after phase 9's rows: K3 and K4 against their plain versions at every
+     (L, G, Dh, R) of SSND2NetP's fused glue that phase 9 lacks, both
+     orientations (L=28 at 2d; G=3 at 3d, batch 2, L up to 1,769,472);
+ 43. the family at 3d_fullres on phase 20-21's plan and dataset (after
+     phase 34): serving one tile of the plan (1x48x192x192, mirror TTA over
+     3 axes) with each name on the default glue and SSND2NetP on the fused
+     glue (157 K1 or 314 K3 launches a forward), SSND2NetP's tile on the
+     default glue against fp64 by the ratio rule (the plain scans in
+     2048-step chunks), and training (2 steps at batch 2 and a validation
+     step) of SSND2NetP on the fused glue with remat, each mini rerun whole
+     (K3 twice a step, K4 once, at G=3), its peak within the card: the one
+     3d training of the family that fits it;
+ 44. the family at 2d, after phase 39: serving (phase 4's volume and tile
+     batch; the tile against fp64 by phase 4's limits for SSND2Net, by the
+     ratio rule for SSND2NetP, whose random weights amplify fp32 rounding
+     past the absolute limits) and training (2 steps at batch 12 and a
+     validation step, peak memory within the card without remat,
+     TFLOP/s) of each name on the default glue and SSND2NetP on the fused
+     glue too (K1/K2 or K3/K4 launches a forward and a step as the tables
+     say, none of the other glue's), one full-width step of SSND2NetP on
+     the default glue and one on the fused glue with the stage minis at
+     one level against fp64 by phase 16's rule;
+ 45. one JSON line ``{"kernels": [...]}`` listing K1-K4 with their launches
      on every path, M2Net's under the key ``m2net``, the Mamba baselines'
-     under ``mamba`` and the LM2Net family's under ``lm2net`` (K1 and K2),
+     under ``mamba``, the LM2Net family's under ``lm2net`` (K1 and K2) and
+     the SSND2Net family's under ``ssnd2net`` (K1/K2 on the default glue's
+     paths, K3/K4 on the fused glue's, each nonzero),
      on each CNN path, the cascade's included (none), under
      ``launches_on_cnn_paths``, on each Transformer path (none) under
      ``launches_on_transformer_paths``, and K3/K4 on each LM2Net-family
-     path (none) under ``launches_on_lm2net_paths``;
- 41. last line ``{"ok": true, "device": {...}}``.
+     path (none) under ``launches_on_lm2net_paths``; every SSND2Net path
+     of phases 43-44 present with nonzero launches;
+ 46. last line ``{"ok": true, "device": {...}}``.
 Every line is also written to ``chiprun_out/chip_smoke.jsonl``.
 ``--profile`` adds torch.profiler tables of one tile batch and of one
 training step under ``chiprun_out/``, for each glue. fp32 throughout (but
-for the fp64 references of phases 4, 6, 11, 12, 15, 16, 20-23, 26, 27, 30,
-31, 33, 34 and 36-38),
+for the fp64 references of phases 4, 6, 11, 12, 15, 20-23, 26, 27, 30,
+31, 33, 34, 36-38, 43 and 44),
 TF32 off for matmuls and convolutions. Phases 14, 19 and 29 run the port's
 own planning and preprocessing on the host (numpy and scipy, 4 threads).
+To fit the time limit, the depth of earlier paths is cut: TRAIN_STEPS
+and CASCADE_STEPS 3 -> 2, M2Net's full-depth step against fp64 left to
+M2NetP's (phase 6), the Mamba baselines' to SegMamba's, the LM2Net
+family's two at stage minis of two levels, the Mamba baselines'
+3d serving on one tile of the plan, and ``phase_cnn_serving``'s warm-up
+one pass of a tile batch without the mirrors.
 """
 
 import contextlib
@@ -239,7 +279,7 @@ ROOT = Path(__file__).resolve().parent
 PATCH = (256, 224)
 TILE_BATCH = 4
 TRAIN_BATCH = 12
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
 KD, N_STATE, K_DIRS = 128, 16, 4
 # (L, scan calls with that L in one forward of M2NetP at 256x224)
 PATH_SHAPES = [(57344, 4), (14336, 8), (3584, 12), (896, 16), (224, 16), (56, 24)]
@@ -584,72 +624,86 @@ CROSS_SHAPES = {
     "M2Net": [(L, CROSS_G, dh, r) for L, dh, r in M2NET_CROSS if dh != CROSS_DH]}
 
 
-def phase_cross_scan_kernels(model="M2NetP", seed=100):
+def phase_cross_scan_kernels(model="M2NetP", seed=100, shapes=None):
     """K3 at the serving and the training batch, K4 at the training batch,
-    both orientations, at the shapes of CROSS_SHAPES[model]: errors against
-    the plain versions, times, bounds."""
+    both orientations, at the shapes of CROSS_SHAPES[model] (TILE_BATCH and
+    TRAIN_BATCH), or of ``shapes``, rows (L, G, Dh, R, serving batch,
+    training batch): errors against the plain versions, times, bounds. Where
+    the two batches are one, the row is timed with the carries and without
+    them. At L > 100,000 the plain versions walk chunks of 2048 steps (a
+    row names its chunk) and are timed once."""
     import torch
     from nnuzoo_tpu_torch.ops.cross_scan import (
         cross_scan_bwd, cross_scan_bwd_plain, cross_scan_fwd, cross_scan_ref)
     names = ("d_streams", "dWx", "dWdt", "dbias", "dA", "dD")
     fwd_rows, bwd_rows = [], []
-    for i, (L, g, dh, r) in enumerate(CROSS_SHAPES[model], start=seed):
-        for b in (TILE_BATCH, TRAIN_BATCH):
-            streams, w, dy = cross_inputs(b, L, g, dh, r, seed=i)
-            for reverse in (False, True):
-                with torch.inference_mode():
-                    y, carries = cross_scan_fwd(streams, *w, reverse,
-                                                return_carries=True)
-                    want = cross_scan_ref(streams, *w, reverse)
-                    torch.cuda.synchronize()
-                    err = (y - want).abs().max().item()
-                    scale = want.abs().max().item()
-                    # serving asks for no carries, training for K4's
-                    train = b == TRAIN_BATCH
-                    ms = time_ms(lambda: cross_scan_fwd(
-                        streams, *w, reverse, return_carries=train), reps=20)
-                    plain_ms = time_ms(lambda: cross_scan_ref(streams, *w, reverse),
-                                       reps=2, warmup=1)
-                del y, want
-                bound_ms, bound_by = cross_bound(b, L, g, dh, N_STATE, r, False)
-                row = dict(model=model, B=b, L=L, G=g, Dh=dh, R=r,
-                           reverse=reverse, carries=train, max_abs_err=err,
-                           rel_err=err / scale, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
-                emit("cross_scan_kernel", **row)
-                if not err <= CROSS_TOL * scale:
-                    raise AssertionError(f"K3 disagrees at {row}")
-                fwd_rows.append(row)
-                if b != TRAIN_BATCH:
-                    continue
-                with torch.inference_mode():
-                    got = cross_scan_bwd(streams, *w, dy, reverse, carries)
-                    want = cross_scan_bwd_plain(streams, *w, dy, reverse)
-                    torch.cuda.synchronize()
-                    flat = lambda t: [torch.cat(t[0], -1), *t[1:]]
-                    errs = {k: ((a - e).abs().max().item(), e.abs().max().item())
-                            for k, a, e in zip(names, flat(got), flat(want))}
-                    ms = time_ms(lambda: cross_scan_bwd(streams, *w, dy, reverse,
-                                                        carries), reps=10)
-                    plain_ms = time_ms(lambda: cross_scan_bwd_plain(
-                        streams, *w, dy, reverse), reps=1, warmup=1)
-                del got, want
-                bound_ms, bound_by = cross_bound(b, L, g, dh, N_STATE, r, True)
-                row = dict(model=model, B=b, L=L, G=g, Dh=dh, R=r,
-                           reverse=reverse,
-                           max_abs_err=max(e for e, _ in errs.values()),
-                           rel_err={k: e / m for k, (e, m) in errs.items()},
-                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
-                emit("cross_scan_bwd_kernel", **row)
-                for k, (e, m) in errs.items():
-                    tol = CROSS_TOL if k == "d_streams" else CROSS_WEIGHT_GRAD_TOL
-                    if not e <= tol * m:
-                        raise AssertionError(f"K4 disagrees at L={L} Dh={dh} "
-                                             f"reverse={reverse}, {k}: {e} > "
-                                             f"{tol} * {m}")
-                bwd_rows.append(row)
-            del streams, w, dy, carries
+    if shapes is None:
+        shapes = [key + (TILE_BATCH, TRAIN_BATCH) for key in CROSS_SHAPES[model]]
+    for i, (L, g, dh, r, serve_b, train_b) in enumerate(shapes, start=seed):
+        long = L > 100_000
+        with plain_chunk(2048 if long else 256):
+            for b in sorted({serve_b, train_b}):
+                streams, w, dy = cross_inputs(b, L, g, dh, r, seed=i)
+                for reverse in (False, True):
+                    with torch.inference_mode():
+                        y, carries = cross_scan_fwd(streams, *w, reverse,
+                                                    return_carries=True)
+                        want = cross_scan_ref(streams, *w, reverse)
+                        torch.cuda.synchronize()
+                        err = (y - want).abs().max().item()
+                        scale = want.abs().max().item()
+                        # serving asks for no carries, training for K4's
+                        train = b == train_b
+                        ms = time_ms(lambda: cross_scan_fwd(
+                            streams, *w, reverse, return_carries=train), reps=20)
+                        ms_without = ms if not train else time_ms(
+                            lambda: cross_scan_fwd(streams, *w, reverse), reps=20) \
+                            if b == serve_b else None
+                        plain_ms = time_ms(lambda: cross_scan_ref(streams, *w, reverse),
+                                           reps=1 if long else 2, warmup=0 if long else 1)
+                    del y, want
+                    bound_ms, bound_by = cross_bound(b, L, g, dh, N_STATE, r, False)
+                    row = dict(model=model, B=b, L=L, G=g, Dh=dh, R=r,
+                               reverse=reverse, carries=train,
+                               plain_chunk=2048 if long else 256, max_abs_err=err,
+                               rel_err=err / scale, ms=ms, ms_without_carries=ms_without,
+                               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                    emit("cross_scan_kernel", **row)
+                    if not err <= CROSS_TOL * scale:
+                        raise AssertionError(f"K3 disagrees at {row}")
+                    fwd_rows.append(row)
+                    if not train:
+                        continue
+                    with torch.inference_mode():
+                        got = cross_scan_bwd(streams, *w, dy, reverse, carries)
+                        want, plain_once = time_once(
+                            lambda: cross_scan_bwd_plain(streams, *w, dy, reverse))
+                        torch.cuda.synchronize()
+                        flat = lambda t: [torch.cat(t[0], -1), *t[1:]]
+                        errs = {k: ((a - e).abs().max().item(), e.abs().max().item())
+                                for k, a, e in zip(names, flat(got), flat(want))}
+                        ms = time_ms(lambda: cross_scan_bwd(streams, *w, dy, reverse,
+                                                            carries), reps=10)
+                        plain_ms = plain_once if long else time_ms(
+                            lambda: cross_scan_bwd_plain(streams, *w, dy, reverse),
+                            reps=1, warmup=1)
+                    del got, want
+                    bound_ms, bound_by = cross_bound(b, L, g, dh, N_STATE, r, True)
+                    row = dict(model=model, B=b, L=L, G=g, Dh=dh, R=r,
+                               reverse=reverse, plain_chunk=2048 if long else 256,
+                               max_abs_err=max(e for e, _ in errs.values()),
+                               rel_err={k: e / m for k, (e, m) in errs.items()},
+                               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by)
+                    emit("cross_scan_bwd_kernel", **row)
+                    for k, (e, m) in errs.items():
+                        tol = CROSS_TOL if k == "d_streams" else CROSS_WEIGHT_GRAD_TOL
+                        if not e <= tol * m:
+                            raise AssertionError(f"K4 disagrees at L={L} Dh={dh} "
+                                                 f"reverse={reverse}, {k}: {e} > "
+                                                 f"{tol} * {m}")
+                    bwd_rows.append(row)
+                del streams, w, dy, carries
         torch.cuda.empty_cache()
     return fwd_rows, bwd_rows
 
@@ -807,7 +861,11 @@ def glue_kernels(glue, trainer_name="nnUNetTrainerM2NetP"):
     from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
     shallow = trainer_name == "nnUNetTrainerM2NetP" and M2NETP_LAYERS is not None
     if glue == "fused":
-        per_forward = 2 * shallow_m2netp_scans() if shallow else FUSED_PER_FORWARD
+        if trainer_name in SSND2NET_FAMILY:
+            per_forward = ssnd2net_calls(trainer_name, 2, glue)
+        else:
+            per_forward = 2 * shallow_m2netp_scans() if shallow \
+                else FUSED_PER_FORWARD
         return cross_scan_fwd, cross_scan_bwd, per_forward, (scan_core,
                                                              scan_core_bwd)
     if shallow:
@@ -816,6 +874,8 @@ def glue_kernels(glue, trainer_name="nnUNetTrainerM2NetP"):
         per_forward = sum(MAMBA_SCANS_2D[trainer_name].values())
     elif trainer_name in LM2NET_FAMILY:
         per_forward = sum(lm2net_scans(trainer_name).values())
+    elif trainer_name in SSND2NET_FAMILY:
+        per_forward = ssnd2net_calls(trainer_name, 2)
     else:
         per_forward = SCANS_PER_FORWARD
     return scan_core, scan_core_bwd, per_forward, (cross_scan_fwd, cross_scan_bwd)
@@ -869,7 +929,6 @@ def phase_end_to_end(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"
     from nnuzoo_tpu_torch.inference.predictor import Predictor
     from nnuzoo_tpu_torch.inference.sliding_window import pad_nd_image
     from nnuzoo_tpu_torch.models.registry import get_model_builder
-    from nnuzoo_tpu_torch.models.ss2d import set_scan_backend
     from nnuzoo_tpu_torch.plans.plans_handler import PlansManager
     from nnuzoo_tpu_torch.preprocessing.preprocessor import DefaultPreprocessor
 
@@ -931,42 +990,65 @@ def phase_end_to_end(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"
 
     if tile_check is None:
         return launches
-    # the tile batch on the card through the kernel path, the plain path in
-    # fp32 (where the path has scans: else it is the same computation) and,
-    # as the reference both are held to, the plain path in fp64; with the
-    # mirrors for M2NetP at full depth, whose readings sit within 2x of the
-    # limits, else one pass
+    # with the mirrors for M2NetP at full depth, whose readings sit within
+    # 2x of the limits, else one pass
     mirrored = trainer_name == "nnUNetTrainerM2NetP" and M2NETP_LAYERS is None
-    check = Predictor(use_mirroring=mirrored, tile_batch_size=TILE_BATCH,
-                      device="cuda")
-    check.manual_initialization(model, [model.state_dict()], pm, cfg,
-                                dataset_json, trainer_name, (0, 1))
-    got = check.tile_forward(tiles)
-    plain = got
-    if per_forward:
-        set_scan_backend(model, "plain")
-        plain = check.tile_forward(tiles)
-        set_scan_backend(model, None)
-    model64 = copy.deepcopy(model).double()
-    set_scan_backend(model64, "plain")
-    reference = Predictor(use_mirroring=mirrored, tile_batch_size=TILE_BATCH,
-                          device="cuda")
-    reference.manual_initialization(model64, [model64.state_dict()], pm, cfg,
-                                    dataset_json, trainer_name, (0, 1))
-    want = reference.tile_forward(tiles.double())
-    del reference, model64
-    readings = {}
-    for name, out in (("kernel_vs_fp64", got), ("plain_fp32_vs_fp64", plain)):
-        c = compare(out, want)
-        c["argmax_agreement"] = (out.argmax(-1) == want.argmax(-1)).float().mean().item()
-        readings[name] = c
-    readings["kernel_vs_plain_fp32"] = compare(got, plain)
+    readings = tile_readings(model, tiles, pm, cfg, dataset_json, trainer_name,
+                             (0, 1), TILE_BATCH, mirrored, bool(per_forward))
     emit("tile_logits", glue=glue, model=type(model).__name__,
          trainer=trainer_name, limits=tile_check, mirrored=mirrored,
          stage_layers=M2NETP_LAYERS if trainer_name == "nnUNetTrainerM2NetP"
          else None, **readings)
     if result is not None:
         result["tile_logits"] = readings
+    check_tile_readings(readings, tile_check)
+    if profile and trainer_name == "nnUNetTrainerM2NetP":
+        profile_tile_batch(predictor, tiles, glue)
+    return launches
+
+
+def tile_readings(model, tiles, pm, cfg, dataset_json, trainer_name, axes,
+                  tile_batch, mirrored, has_scans):
+    """One tile batch on the card through the kernel path, the plain path in
+    fp32 (where the path has scans: else it is the same computation) and,
+    as the reference both are held to, the plain path in fp64: each fp32
+    path against fp64 (max, mean, range, argmax agreement) and the two fp32
+    paths against each other."""
+    from nnuzoo_tpu_torch.inference.predictor import Predictor
+    from nnuzoo_tpu_torch.models.ss2d import set_scan_backend
+
+    def predictor(net):
+        p = Predictor(use_mirroring=mirrored, tile_batch_size=tile_batch,
+                      device="cuda")
+        p.manual_initialization(net, [net.state_dict()], pm, cfg, dataset_json,
+                                trainer_name, axes)
+        return p
+
+    check = predictor(model)
+    got = check.tile_forward(tiles)
+    plain = got
+    if has_scans:
+        set_scan_backend(model, "plain")
+        plain = check.tile_forward(tiles)
+        set_scan_backend(model, None)
+    model64 = copy.deepcopy(model).double()
+    set_scan_backend(model64, "plain")
+    want = predictor(model64).tile_forward(tiles.double())
+    del model64
+    readings = {}
+    for name, out in (("kernel_vs_fp64", got), ("plain_fp32_vs_fp64", plain)):
+        c = compare(out, want)
+        c["argmax_agreement"] = (out.argmax(-1) == want.argmax(-1)).float().mean().item()
+        readings[name] = c
+    readings["kernel_vs_plain_fp32"] = compare(got, plain)
+    return readings
+
+
+def check_tile_readings(readings, tile_check):
+    """Phase 4's limits (``tile_check`` True: each fp32 path against fp64
+    within TILE_MAX_TOL and TILE_MEAN_TOL of the range and AGREE_MIN in
+    argmax; "ratio": only the rule below) and the kernel path's mean error
+    within KERNEL_MEAN_RATIO of the fp32 plain path's."""
     for name in ("kernel_vs_fp64", "plain_fp32_vs_fp64") \
             if tile_check is True else ():
         c = readings[name]
@@ -975,13 +1057,9 @@ def phase_end_to_end(profile, glue="default", trainer_name="nnUNetTrainerM2NetP"
                 and c["argmax_agreement"] >= AGREE_MIN):
             raise AssertionError(f"tile logits, {name}: {c}")
     if not (readings["kernel_vs_fp64"]["mean_abs"]
-                           <= KERNEL_MEAN_RATIO
-                           * readings["plain_fp32_vs_fp64"]["mean_abs"]):
+            <= KERNEL_MEAN_RATIO * readings["plain_fp32_vs_fp64"]["mean_abs"]):
         raise AssertionError(f"tile logits: the kernel path is further from "
                              f"fp64 than the fp32 plain path: {readings}")
-    if profile and trainer_name == "nnUNetTrainerM2NetP":
-        profile_tile_batch(predictor, tiles, glue)
-    return launches
 
 
 def kernel_ms(kernels, *names, exclude=()):
@@ -1182,7 +1260,7 @@ def phase_training(profile, glue="default", trainer_name="nnUNetTrainerM2NetP",
     log = trainer.logger.my_fantastic_logging
     counts = {}
     step_s = float(np.mean([s["seconds"] for s in steps[1:]]))
-    if trainer_name in LM2NET_FAMILY:
+    if trainer_name in LM2NET_FAMILY + SSND2NET_FAMILY:
         c = family_counts(trainer.model, trainer_name)
         counts = dict(parameters=c["parameters"],
                       step_tflop=TRAIN_BATCH * c["step_flop"] / 1e12,
@@ -1476,9 +1554,11 @@ def phase_step_agreement(trainer, glue="default"):
                              f"plain path's: {readings}")
 
 
-def phase_full_step_agreement(trainer, same_paths=False):
+def phase_full_step_agreement(trainer, same_paths=False, glue="default",
+                              depth="full_depth"):
     """The trainer's model at full width and depth (M2Net,
-    SwinUMamba, LightMUNet and SegMamba), default glue: one training step's
+    SwinUMamba, LightMUNet and SegMamba; SSND2NetP also on the fused glue),
+    on ``glue``: one training step's
     loss and gradients from weights drawn from STEP_SEED on the batch of
     STEP_SEED, kernel path and fp32 plain path against the plain path in
     fp64, under phase 6's full-depth rule: the kernel path's error norm
@@ -1486,16 +1566,18 @@ def phase_full_step_agreement(trainer, same_paths=False):
     full-depth limits are not assumed to hold for these models: their
     distances are reported."""
     from nnuzoo_tpu_torch.models.registry import get_model_builder
-    model = get_model_builder(trainer.trainer_name)(
-        trainer.plans_manager, trainer.dataset_json, trainer.configuration_manager,
-        trainer.num_input_channels, True, device="cuda", seed=STEP_SEED)
+    with ss2d_glue(glue):
+        model = get_model_builder(trainer.trainer_name)(
+            trainer.plans_manager, trainer.dataset_json,
+            trainer.configuration_manager, trainer.num_input_channels, True,
+            device="cuda", seed=STEP_SEED)
     readings, reference = step_readings(
         trainer, model, *augmented(trainer, *seeded_batch(trainer)),
         same_paths=same_paths)
     model_name = type(model).__name__
     del model
-    emit("step_agreement", glue="default", model=model_name,
-         trainer=trainer.trainer_name, depth="full_depth",
+    emit("step_agreement", glue=glue, model=model_name,
+         trainer=trainer.trainer_name, depth=depth,
          batch=STEP_BATCH, seed=STEP_SEED, sampler_seed=STEP_SEED,
          kernel_over_plain=readings["kernel"]["grad_err_norm"]
          / readings["plain_fp32"]["grad_err_norm"], **reference, **readings)
@@ -1983,6 +2065,9 @@ CNN_2D_ARCH = {
 }
 CNN_3D_TILE_BATCH = 2
 CNN_3D_VOLUME = (1, 64, 256, 256)   # (c, z, y, x): 2x2x2 tiles of the patch
+# one tile of the patch: the 3d serving volume of the models with scans
+# (zoo_sweep's 1x64x256x256 takes 8 tiles, 64 forwards with the mirrors)
+ONE_TILE_3D = (1, *CNN_3D_PATCH)
 CNN_3D_CASE = (80, 256, 256)        # (z, y, x) of a preprocessed training case
 # one 3d training step of PlainConvUNet (random weights from STEP_SEED, GroupNorm
 # after every conv) against the same step in fp64: |loss - fp64| / |fp64| and
@@ -2061,22 +2146,30 @@ def cnn_plans(dim):
     return plans, dataset_json, "3d_fullres"
 
 
-def scan_calls(trainer_name, dim):
-    """K1 launches of one forward of the trainer's model at full width
-    (256x224, or zoo_sweep's 3d patch): none for the CNN baselines."""
+def scan_calls(trainer_name, dim, glue="default"):
+    """K1 launches (K3's with the fused glue) of one forward of the
+    trainer's model at full width (256x224, or zoo_sweep's 3d patch): none
+    for the CNN baselines."""
+    if trainer_name in SSND2NET_FAMILY:
+        return ssnd2net_calls(trainer_name, dim, glue)
     table = MAMBA_SCANS_3D if dim == 3 else MAMBA_SCANS_2D
     return sum(table.get(trainer_name, {}).values())
 
 
-def phase_cnn_serving(trainer_name, dim):
+def phase_cnn_serving(trainer_name, dim, glue="default", volume_shape=None,
+                      tile_check=None):
     """Serving a CNN or Transformer baseline (or a Mamba baseline at 3d) at
     full width through ``Predictor.predict_single_npy_array``: at 3d
     zoo_sweep's plan on a seeded 1x64x256x256 volume (8 tiles, tile batch 2,
     mirror TTA over 3 axes), at 2d phase 4's volume and settings. Seconds
     per volume, peak memory and K1-K4 launches (none for a CNN or a
     Transformer; a Mamba model's K1 launches a forward as its scan table
-    says); for a model without scans one tile batch's logits, fp32 against
-    the same model in fp64, by phase 4's limits. Returns the launches."""
+    says, an SSND2Net's K1 or K3 by ``glue``); for a model without scans one
+    tile batch's logits, fp32 against the same model in fp64, by phase 4's
+    limits; for a model with scans, where ``tile_check`` asks for it, the
+    tile batch through ``tile_readings`` (one pass, the plain scans in
+    2048-step chunks) held by ``check_tile_readings``' rule. ``volume_shape``
+    (c, z, y, x) replaces the 3d volume. Returns the launches."""
     import numpy as np
     import torch
     from nnuzoo_tpu_torch.inference.predictor import Predictor
@@ -2090,11 +2183,12 @@ def phase_cnn_serving(trainer_name, dim):
     pm = PlansManager(plans)
     cfg = pm.get_configuration(name)
     patch = tuple(cfg.patch_size)
-    per_forward = scan_calls(trainer_name, dim)
+    per_forward = scan_calls(trainer_name, dim, glue)
     t0 = time.perf_counter()
-    model = get_model_builder(trainer_name)(pm, dataset_json, cfg, 1,
-                                            deep_supervision=False, device="cuda",
-                                            seed=0)
+    with ss2d_glue(glue):
+        model = get_model_builder(trainer_name)(pm, dataset_json, cfg, 1,
+                                                deep_supervision=False,
+                                                device="cuda", seed=0)
     build_s = time.perf_counter() - t0
     tile_batch = CNN_3D_TILE_BATCH if dim == 3 else TILE_BATCH
     axes = (0, 1, 2) if dim == 3 else (0, 1)
@@ -2104,21 +2198,26 @@ def phase_cnn_serving(trainer_name, dim):
                                     dataset_json, trainer_name, axes)
     rng = np.random.RandomState(0)
     if dim == 3:
-        volume = (100 * rng.rand(*CNN_3D_VOLUME)).astype(np.float32)
+        volume = (100 * rng.rand(*(volume_shape or CNN_3D_VOLUME))).astype(
+            np.float32)
         props = {"spacing": list(CNN_3D_SPACING)}
     else:
         volume = (100 * rng.rand(1, 4, 224, 256)).astype(np.float32)
         props = {"spacing": [3.0, 1.0, 1.0]}
 
-    # the first tile batch of the volume: the warm-up (with the mirrors, as
-    # the prediction runs it) and, for a model without scans, the tile check
+    # the first tile batch of the volume: the warm-up and the tile check.
+    # One pass warms up: the mirrored passes run the same kernels on the
+    # same shapes (and at one tile, a mirrored warm-up would double the
+    # work of the volume)
     data, _ = DefaultPreprocessor().run_case_npy(
         volume, None, dict(props), pm, cfg, dataset_json)
     padded, _ = pad_nd_image(data, patch)
     slicers = get_sliding_window_slicers(padded.shape[1:], patch, 0.5)[:tile_batch]
     tiles = torch.stack([torch.from_numpy(np.ascontiguousarray(padded[sl]))
                          for sl in slicers]).cuda().movedim(1, -1).contiguous()
+    predictor.use_mirroring = False
     predictor.tile_forward(tiles)                                 # warm-up
+    predictor.use_mirroring = True
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_scan_launches()
@@ -2129,9 +2228,12 @@ def phase_cnn_serving(trainer_name, dim):
     seconds = time.perf_counter() - t0
     launches, forwards = scan_launches(), predictor.forward_count
     labels = sorted(int(v) for v in np.unique(seg))
-    tile_flop = model_flop(model, (1, *patch, 1), backward=False)
-    emit("mamba_serving_3d" if per_forward else f"{path_kind(trainer_name)}_serving",
-         trainer=trainer_name, model=type(model).__name__, dim=dim,
+    tile_flop = ssnd2net_counts(model, trainer_name, glue)["forward_flop"] \
+        if trainer_name in SSND2NET_FAMILY and dim == 3 \
+        else model_flop(model, (1, *patch, 1), backward=False)
+    kind = path_kind(trainer_name)
+    emit("mamba_serving_3d" if per_forward and kind == "cnn" else f"{kind}_serving",
+         trainer=trainer_name, model=type(model).__name__, dim=dim, glue=glue,
          parameters=sum(p.numel() for p in model.parameters()), patch=list(patch),
          model_build_s=build_s, seconds_per_volume=seconds,
          tile_tflop=tile_flop / 1e12,
@@ -2150,6 +2252,17 @@ def phase_cnn_serving(trainer_name, dim):
         # a Mamba model at 3d: its fp64 twin would run the plain scan over
         # up to 1.77M positions for each of 8 mirrorings; its kernels are
         # held to their plain versions at these shapes in phase 24
+        if tile_check is not None:
+            # 256-step chunks would cost the host a minute of launches at
+            # these lengths
+            with plain_chunk(2048):
+                readings = tile_readings(model, tiles, pm, cfg, dataset_json,
+                                         trainer_name, axes, tile_batch,
+                                         False, True)
+            emit(f"{kind}_tile_logits", trainer=trainer_name, dim=dim,
+                 glue=glue, tiles=len(slicers), limits=tile_check,
+                 plain_chunk=2048, **readings)
+            check_tile_readings(readings, tile_check)
         torch.cuda.empty_cache()
         return launches
     # the tile batch, fp32 against the model in fp64, one pass without the
@@ -2179,7 +2292,7 @@ def phase_cnn_serving(trainer_name, dim):
     return launches
 
 
-def phase_cnn_training(trainer_name, dim):
+def phase_cnn_training(trainer_name, dim, glue="default", remat=False):
     """``Trainer.run_training()`` of a CNN or Transformer baseline (or a
     Mamba baseline at 3d) for one epoch of TRAIN_STEPS steps and one
     validation step (SGD and poly for the PlainConvUNet), at 3d on three
@@ -2187,13 +2300,16 @@ def phase_cnn_training(trainer_name, dim):
     unless there), at 2d on phase 5's dataset. Seconds per step, peak
     memory, K1-K4 launches (none for a CNN or a Transformer; a Mamba
     model's K1 and K2 as its scan table says, each step and the validation
-    step). Returns the trainer, the launches (all of K1-K4; K1's and K2's
-    for a Mamba model) and the last batch."""
+    step; an SSND2Net's K1 and K2 or K3 and K4 by ``glue``, the forward
+    kernel twice a step with ``remat``, which reruns each mini whole).
+    Returns the trainer, the launches (all of K1-K4; the forward and the
+    backward kernel's for a model with scans) and the last batch."""
     import numpy as np
     import torch
-    from nnuzoo_tpu_torch.ops.selective_scan import scan_core, scan_core_bwd
     from nnuzoo_tpu_torch.training.trainer import Trainer
 
+    fwd_kernel, bwd_kernel = scan_kernels()[2:] if glue == "fused" \
+        else scan_kernels()[:2]
     plans, dataset_json, name = cnn_plans(dim)
     folder = os.path.join(os.environ["nnUNet_preprocessed"], plans["dataset_name"],
                           plans["configurations"][name]["data_identifier"])
@@ -2207,7 +2323,15 @@ def phase_cnn_training(trainer_name, dim):
                       trainer_name=trainer_name, device="cuda", seed=0)
     trainer.config = replace(trainer.config, num_iterations_per_epoch=TRAIN_STEPS,
                              num_val_iterations_per_epoch=1)
-    trainer.initialize()
+    before_remat = os.environ.get("NNUZOO_REMAT")
+    os.environ["NNUZOO_REMAT"] = "1" if remat else "0"
+    try:
+        with ss2d_glue(glue):
+            trainer.initialize()
+    finally:
+        os.environ.pop("NNUZOO_REMAT")
+        if before_remat is not None:
+            os.environ["NNUZOO_REMAT"] = before_remat
     steps, batches = [], []
     inner = trainer.train_step
 
@@ -2232,18 +2356,27 @@ def phase_cnn_training(trainer_name, dim):
     seconds = time.perf_counter() - t0
     trainer.train_step = inner
     launches = scan_launches()
-    k1_k2 = scan_core.launches, scan_core_bwd.launches
-    per_forward = scan_calls(trainer_name, dim)
+    k1_k2 = fwd_kernel.launches, bwd_kernel.launches
+    per_forward = scan_calls(trainer_name, dim, glue)
+    # with remat each step runs the forward twice
+    fwd_per_step = (2 if remat else 1) * per_forward
     peak = torch.cuda.max_memory_allocated()
     losses = [s["loss"] for s in steps]
     log = trainer.logger.my_fantastic_logging
     step_s = float(np.mean([s["seconds"] for s in steps[1:]]))
-    step_flop, saved = model_counts(
-        trainer.model, (batches[0][0].shape[0],
-                        *trainer.configuration_manager.patch_size, 1),
-        backward=True)
+    batch = batches[0][0].shape[0]
+    if trainer_name in SSND2NET_FAMILY:
+        # the meta device's backward would walk every plain scan chunk on
+        # the host: three forwards' worth
+        c = ssnd2net_counts(trainer.model, trainer_name, glue)
+        step_flop, saved = 3 * batch * c["forward_flop"], batch * c["saved_bytes"]
+    else:
+        step_flop, saved = model_counts(
+            trainer.model, (batch, *trainer.configuration_manager.patch_size, 1),
+            backward=True)
     readings = dict(
         trainer=trainer_name, model=type(trainer.model).__name__, dim=dim,
+        glue=glue, remat=getattr(trainer.model, "remat", False),
         parameters=sum(p.numel() for p in trainer.model.parameters()),
         optimizer=type(trainer.optimizer).__name__, steps=steps, losses=losses,
         seconds_per_step_after_first=step_s, step_tflop=step_flop / 1e12,
@@ -2255,13 +2388,16 @@ def phase_cnn_training(trainer_name, dim):
         initial_patch=list(trainer.train_aug_cfg.initial_patch_size),
         do_dummy_2d=trainer.train_aug_cfg.do_dummy_2d,
         ds_scales=ds_scales_list(trainer))
-    emit(f"mamba_training_{dim}d" if per_forward
-         else f"{path_kind(trainer_name)}_training", **readings)
+    kind = path_kind(trainer_name)
+    emit(f"mamba_training_{dim}d" if per_forward and kind == "cnn"
+         else f"{kind}_training", **readings)
     if len(steps) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
             not np.isfinite(log["val_losses"][0]) or \
-            k1_k2 != ((TRAIN_STEPS + 1) * per_forward, TRAIN_STEPS * per_forward) \
-            or launches != sum(k1_k2) or any(
-                s["scan_launches"] != 2 * per_forward for s in steps):
+            k1_k2 != (TRAIN_STEPS * fwd_per_step + per_forward,
+                      TRAIN_STEPS * per_forward) \
+            or launches != sum(k1_k2) or \
+            getattr(trainer.model, "remat", False) != remat or any(
+                s["scan_launches"] != fwd_per_step + per_forward for s in steps):
         raise AssertionError(f"{trainer_name} training: losses {losses}, val "
                              f"{log['val_losses']}, {launches} scan launches "
                              f"(K1, K2: {k1_k2}), {per_forward} a forward expected")
@@ -2502,7 +2638,7 @@ def phase_planned_3d(card):
 
 
 # ----------------------------------------------------------------- cascade
-CASCADE_STEPS = 3        # steps of each stage of the cascade (and one val step)
+CASCADE_STEPS = 2        # steps of each stage of the cascade (and one val step)
 CASCADE_AUG_REPS = 5     # timed augmentations of one batch, each setting
 CASCADE_CHECK_CROP = (32, 64, 64)   # the card-against-CPU morphology's volume
 
@@ -2820,7 +2956,7 @@ MAMBA_SCANS_3D = {
                 (432, 768, 1): 6}}
 MAMBA_3D_BATCH = 2
 # the fp64 step check at full width (phase 16's rule) for these three
-MAMBA_STEP_CHECKED = (SWIN_UMAMBA, LIGHT_MUNET, SEG_MAMBA)
+MAMBA_STEP_CHECKED = (SEG_MAMBA,)
 
 
 def mamba_scan_shapes():
@@ -3072,6 +3208,8 @@ TRANSFORMER_STEP_LIMITS = {
 
 
 def path_kind(trainer_name):
+    if trainer_name in SSND2NET_FAMILY:
+        return "ssnd2net"
     return "transformer" if trainer_name in TRANSFORMERS else "cnn"
 
 
@@ -3318,6 +3456,21 @@ def lm2net_scan_shapes():
 _FAMILY_COUNTS = {}
 
 
+@contextlib.contextmanager
+def shallow_minis(family, layers):
+    """The X²Net family of the module ``family`` ("lm2net" or "ssnd2net")
+    built with its stage minis at ``layers`` levels by the registry inside
+    (the bottleneck minis keep theirs)."""
+    import importlib
+    module = importlib.import_module(f"nnuzoo_tpu_torch.models.{family}")
+    before = module._N_LAYERS
+    module._N_LAYERS = tuple(layers)
+    try:
+        yield
+    finally:
+        module._N_LAYERS = before
+
+
 def family_counts(model, trainer_name):
     """Per sample: the operations of a forward and of a training step and
     the bytes the forward saves for the backward (``model_counts``' upper
@@ -3476,9 +3629,12 @@ def phase_lm2net(profile):
                                  f"bytes")
         if name in (LM2NET, LIGHT_M2):
             # LightMamba2Net on SSD, its default route: no scan kernel runs,
-            # so its one fp32 path is held to fp64
-            timed(f"step_agreement {name}", phase_full_step_agreement, trainer,
-                  same_paths=name == LIGHT_M2)
+            # so its one fp32 path is held to fp64; both at minis of two
+            # levels (the stage tables and the bottleneck stay)
+            with shallow_minis("lm2net", (2, 2, 2, 2)):
+                timed(f"step_agreement {name}", phase_full_step_agreement,
+                      trainer, same_paths=name == LIGHT_M2,
+                      depth="stage_minis_2_2_2_2")
         del trainer
         torch.cuda.empty_cache()
         cross[name] = (cross_scan_fwd.launches - before[0]
@@ -3498,31 +3654,335 @@ def phase_lm2net(profile):
     return launches, cross, agreement
 
 
-def lm2net_entry(fwd_rows, bwd_rows, shared_fwd, shared_bwd, backward,
-                 launches_by_path):
-    """A kernel's LM2Net-family key of the kernels line: for LM2Net(P), and
-    for LightMamba2Net(P) on the mamba1 route, the ms, plain ms and bound of
-    one training step's calls (rows at the training batch of each (L, K*Dh,
-    K), this phase's or the Mamba baselines' where they share a shape,
-    weighted by the model's calls), its launches a step, and the launches on
-    each path of the family."""
-    rows = {(r["L"], r["KD"], r["K"]): r
-            for r in (shared_bwd + bwd_rows if backward else shared_fwd + fwd_rows)
-            if not r["steep"] and r["B"] == TRAIN_BATCH}
+def family_entry(tables, own, shared, launches_by_path, per,
+                 key=lambda r: (r["L"], r["KD"], r.get("K", K_DIRS))):
+    """A kernel's key of the kernels line for an X²Net family: for each
+    model of ``tables`` ({label: (batch, {shape: calls})}), the ms, plain ms
+    and bound of one training step's calls (the rows at that batch of each
+    shape, the family's own ``own`` or an earlier phase's ``shared`` where
+    they share one, weighted by the model's calls of that shape), its
+    launches a step; the launches on each path of the family."""
     per_model = {}
-    for tag, table in (("", LM2NET_SCANS_2D), ("_mamba1", LM2NET_MAMBA1_SCANS_2D)):
-        for trainer, scans in table.items():
-            if not scans:
-                continue
-            per_model[trainer + tag] = dict(
-                launches_per_step=sum(scans.values()),
-                **{field: sum(n * rows[key][field] for key, n in scans.items())
-                   for field in ("ms", "plain_ms", "bound_ms")})
-    own = bwd_rows if backward else fwd_rows
-    return {"per": ("one training step of each model: its calls at each "
-                    "(L, K*Dh, K) at B=12 times the row's ms"),
-            "per_model": per_model, "launches_by_path": launches_by_path,
+    for label, (batch, calls) in tables.items():
+        rows = {}
+        for r in own + shared:
+            if not r.get("steep") and r["B"] == batch:
+                rows.setdefault(key(r), r)
+        per_model[label] = dict(
+            launches_per_step=sum(calls.values()),
+            **{field: sum(n * rows[k][field] for k, n in calls.items())
+               for field in ("ms", "plain_ms", "bound_ms")})
+    return {"per": per, "per_model": per_model,
+            "launches_by_path": launches_by_path,
             "max_abs_err": max(r["max_abs_err"] for r in own), "shapes": own}
+
+
+# the LM2Net family's tables for ``family_entry``: LM2Net(P), and
+# LightMamba2Net(P) on the mamba1 route, at the training batch
+LM2NET_TABLES = {trainer + tag: (TRAIN_BATCH, scans)
+                 for tag, table in (("", LM2NET_SCANS_2D),
+                                    ("_mamba1", LM2NET_MAMBA1_SCANS_2D))
+                 for trainer, scans in table.items() if scans}
+LM2NET_PER = ("one training step of each model: its calls at each "
+              "(L, K*Dh, K) at B=12 times the row's ms")
+
+
+# ----------------------------------------------------------------- the SSND2Net family
+# The X²Net hybrid on mini N-d cross-scan U-Nets: each mini level mixes with
+# SSND, whose default glue scans K = 2*dim directions on K1/K2 and whose
+# fused glue makes two G = dim calls of K3/K4 (SSND2NetP only: SSND2Net's
+# bottleneck SSNDs, Dh 512 and dt rank 16, are wider than K3/K4 take).
+SSND2NET = "nnUNetTrainerSSND2Net"
+SSND2NET_P = "nnUNetTrainerSSND2NetP"
+SSND2NET_FAMILY = (SSND2NET, SSND2NET_P)
+# (name, glue) of every serving path of the family, at 2d and at 3d, and of
+# every training path at 2d: SSND2Net's bottleneck SSNDs (Dh 512, dt rank
+# 16) are wider than K3/K4 take, so it has no fused path
+SSND2NET_PATHS = ((SSND2NET, "default"), (SSND2NET_P, "default"),
+                  (SSND2NET_P, "fused"))
+# {(L, K*Dh, K): scan calls} of one forward at 256x224 and at zoo_sweep's 3d
+# patch 48x192x192, as the CPU tests fix them on the meta device
+# (tests/test_torch_ssnd2net.py); 157 SSNDs a forward either way
+SSND2NET_SCANS = {
+    2: {SSND2NET_P: {(57344, 128, 4): 6, (14336, 128, 4): 12,
+                     (3584, 128, 4): 18, (896, 128, 4): 24, (224, 128, 4): 46,
+                     (56, 128, 4): 35, (28, 128, 4): 16},
+        SSND2NET: {(57344, 128, 4): 6, (14336, 128, 4): 6, (14336, 256, 4): 6,
+                   (3584, 128, 4): 6, (3584, 256, 4): 6, (3584, 512, 4): 6,
+                   (896, 128, 4): 6, (896, 256, 4): 6, (896, 512, 4): 6,
+                   (896, 1024, 4): 6, (224, 128, 4): 6, (224, 256, 4): 6,
+                   (224, 512, 4): 6, (224, 1024, 4): 6, (224, 2048, 4): 22,
+                   (56, 128, 4): 6, (56, 256, 4): 6, (56, 512, 4): 6,
+                   (56, 1024, 4): 6, (56, 2048, 4): 11, (28, 128, 4): 4,
+                   (28, 256, 4): 4, (28, 512, 4): 4, (28, 1024, 4): 4}},
+    3: {SSND2NET_P: {(1769472, 192, 6): 6, (221184, 192, 6): 12,
+                     (27648, 192, 6): 18, (3456, 192, 6): 24, (432, 192, 6): 46,
+                     (108, 192, 6): 35, (27, 192, 6): 16},
+        SSND2NET: {(1769472, 192, 6): 6, (221184, 192, 6): 6,
+                   (221184, 384, 6): 6, (27648, 192, 6): 6, (27648, 384, 6): 6,
+                   (27648, 768, 6): 6, (3456, 192, 6): 6, (3456, 384, 6): 6,
+                   (3456, 768, 6): 6, (3456, 1536, 6): 6, (432, 192, 6): 6,
+                   (432, 384, 6): 6, (432, 768, 6): 6, (432, 1536, 6): 6,
+                   (432, 3072, 6): 22, (108, 192, 6): 6, (108, 384, 6): 6,
+                   (108, 768, 6): 6, (108, 1536, 6): 6, (108, 3072, 6): 11,
+                   (27, 192, 6): 4, (27, 384, 6): 4, (27, 768, 6): 4,
+                   (27, 1536, 6): 4}}}
+# {(L, G, Dh, R): K3 calls in each orientation} of one forward of SSND2NetP
+# on the fused glue: one call an SSND each way, G = dim streams of Dh 32, R 1
+SSND2NET_CROSS = {dim: {(L, dim, kd // (2 * dim), 1): n for (L, kd, _), n in
+                        SSND2NET_SCANS[dim][SSND2NET_P].items()}
+                  for dim in (2, 3)}
+# the tile check's rule for each: SSND2NetP with random weights amplifies
+# fp32 rounding past phase 4's absolute limits whichever scan runs (one tile
+# batch at 2d read 6.9e-3 of the range in mean and 0.972 in argmax on the
+# kernel path, 6.8e-3 and 0.972 on the fp32 plain path; 3.6e-2 and 0.79 at
+# 3d, on an H100 80GB HBM3 at 700 W), SSND2Net reads 3.1e-4 and 0.998
+SSND2NET_TILE_CHECK = {SSND2NET: True, SSND2NET_P: "ratio"}
+
+
+
+def ssnd2net_calls(trainer_name, dim, glue="default"):
+    """Scan-kernel launches of one forward of the model at full width: K1's
+    on the default glue, K3's (two an SSND) on the fused glue."""
+    n = sum(SSND2NET_SCANS[dim][trainer_name].values())
+    return 2 * n if glue == "fused" else n
+
+
+def ssnd2net_scan_shapes():
+    """(L, K*Dh, K, batch, steep) of K1/K2 for the SSND2Net family: each
+    (L, K*Dh, K) of its 2d table that no earlier phase has, at the training
+    batch with the carries and the backward and at the serving batch
+    without them; each of its 3d table (K=6, new to the kernels) at
+    MAMBA_3D_BATCH, the 3d training batch and tile batch both, timed with
+    and without the carries; and steep decay at K=6."""
+    seen = {(L, KD, K_DIRS) for L, _ in PATH_SHAPES} | \
+        {(L, kd, K_DIRS) for L, kd in M2NET_SCANS} | \
+        {key for table in (MAMBA_SCANS_2D, MAMBA_SCANS_3D, LM2NET_SCANS_2D,
+                           LM2NET_MAMBA1_SCANS_2D)
+         for scans in table.values() for key in scans}
+    order = lambda k: (-k[0], k[1])
+    keys_2d = sorted({k for scans in SSND2NET_SCANS[2].values() for k in scans}
+                     - seen, key=order)
+    keys_3d = sorted({k for scans in SSND2NET_SCANS[3].values() for k in scans}
+                     - seen, key=order)
+    return [k + (b, False) for k in keys_2d for b in (TRAIN_BATCH, TILE_BATCH)] \
+        + [k + (MAMBA_3D_BATCH, False) for k in keys_3d] \
+        + [(3000, 192, 6, TRAIN_BATCH, True)]
+
+
+def ssnd2net_cross_shapes():
+    """(L, G, Dh, R, serving batch, training batch) of K3/K4 for SSND2NetP's
+    fused glue: its 2d lengths that phase 9 does not have (TILE_BATCH,
+    TRAIN_BATCH), and every 3d length at G=3 (MAMBA_3D_BATCH, the 3d tile
+    and training batch)."""
+    seen = set(CROSS_SHAPES["M2NetP"])
+    return [key + (TILE_BATCH, TRAIN_BATCH) for key in SSND2NET_CROSS[2]
+            if key not in seen] + \
+        [key + (MAMBA_3D_BATCH, MAMBA_3D_BATCH) for key in SSND2NET_CROSS[3]]
+
+
+@contextlib.contextmanager
+def plain_chunk(chunk):
+    """The plain scan and its plain backward walking chunks of ``chunk``
+    steps (256 by default) wherever the plain paths call them: at 3d
+    lengths, 256-step chunks cost the host a minute of launches a block."""
+    import functools
+    from nnuzoo_tpu_torch.ops import selective_scan as ops
+    saved = ops.scan_core_plain, ops.scan_core_bwd_plain
+    ops.scan_core_plain = functools.partial(saved[0], chunk=chunk)
+    ops.scan_core_bwd_plain = functools.partial(saved[1], chunk=chunk)
+    try:
+        yield
+    finally:
+        ops.scan_core_plain, ops.scan_core_bwd_plain = saved
+
+
+def phase_ssnd_blocks():
+    """One SSND at full width on each glue, the kernel path against the plain
+    path: the output to SS2D_TOL of its max, the input's and every
+    parameter's gradient to SS2D_GRAD_TOL of each one's max. At 2d d_model
+    16 over 2x256x224 (SSND2Net(P)'s stage 1) and d_model 128 over 2x32x28
+    (SSND2Net's stage 4, the widest SSND the fused glue takes); at 3d
+    d_model 16 over 2x48x192x192 (K=6 on K1/K2, G=3 on K3/K4), where the
+    plain path is the plain scan pair (autograd through the plain scan would
+    keep every level of 3.5M positions) in chunks of 2048 steps."""
+    import torch
+    from nnuzoo_tpu_torch.models.layers import init_parameters
+    from nnuzoo_tpu_torch.models.ss2d import set_scan_backend, set_ss2d_glue
+    from nnuzoo_tpu_torch.models.ssnd import SSND
+    cases = [(16, (2, *PATCH), g) for g in ("default", "fused")] + \
+        [(128, (2, 32, 28), g) for g in ("default", "fused")] + \
+        [(16, (MAMBA_3D_BATCH, *CNN_3D_PATCH), g) for g in ("default", "fused")]
+    for i, (width, shape, glue) in enumerate(cases):
+        dim = len(shape) - 1
+        module = SSND(width, dim)
+        init_parameters(module, torch.Generator().manual_seed(20 + i))
+        module = module.cuda()
+        set_ss2d_glue(module, glue)
+        g = torch.Generator(device="cuda").manual_seed(30 + i)
+        x = torch.randn(*shape, width, device="cuda",
+                        generator=g).requires_grad_()
+        names = ["input"] + [n for n, _ in module.named_parameters()]
+        leaves = [x] + list(module.parameters())
+        runs = {}
+        plain = "plain_pair" if dim == 3 else "plain"
+        for backend in (None, plain):
+            set_scan_backend(module, backend)
+            t0 = time.perf_counter()
+            with plain_chunk(2048 if dim == 3 else 256):
+                out = module(x)
+            dout = torch.randn(out.shape, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(40 + i))
+            with plain_chunk(2048 if dim == 3 else 256):
+                runs[backend] = (out.detach(),
+                                 torch.autograd.grad(out, leaves, dout))
+            torch.cuda.synchronize()
+            runs[backend] += (time.perf_counter() - t0,)
+            del out, dout
+        c = compare(runs[None][0], runs[plain][0])
+        rel = {n: ((a - b).abs().max() / b.abs().max()).item()
+               for n, a, b in zip(names, runs[None][1], runs[plain][1])}
+        emit("ssnd_block", d_model=width, glue=glue, shape=list(shape) + [width],
+             plain=plain, **c, grad_rel_err=rel, kernel_path_s=runs[None][2],
+             plain_path_s=runs[plain][2])
+        bad = {n: e for n, e in rel.items() if not e <= SS2D_GRAD_TOL}
+        if not c["max_abs"] <= SS2D_TOL * c["max_ref"] or bad:
+            raise AssertionError(f"SSND d_model {width} {glue} at {shape}: "
+                                 f"kernel path vs plain path {c}, gradients {bad}")
+        del runs, module, x, leaves
+        torch.cuda.empty_cache()
+
+
+def ssnd2net_counts(model, trainer_name, glue):
+    """Per sample at the 3d plan, on a copy of the model on the meta device
+    with ``glue`` (the scans by their operators' shape functions): the
+    operations of a forward and the bytes it saves for the backward
+    (``model_counts``' upper bound). The backward is not run on the meta
+    device (its plain scans would walk every chunk on the host). Counted
+    once a model and glue."""
+    key = (trainer_name, 3, glue)
+    if key not in _FAMILY_COUNTS:
+        import torch
+        from torch.utils.flop_counter import FlopCounterMode
+        from nnuzoo_tpu_torch.models.ss2d import set_ss2d_glue
+        meta = copy.deepcopy(model).to("meta").train()
+        set_ss2d_glue(meta, glue)
+        saved = [0]
+
+        def pack(t):
+            saved[0] += t.numel() * t.element_size()
+            return t
+
+        for m in meta.modules():
+            if hasattr(m, "rate"):      # DropPath: no masks on the meta device
+                m.rate = 0.0
+        with FlopCounterMode(display=False) as forward:
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                meta(torch.empty((1, *CNN_3D_PATCH, 1), device="meta",
+                                 requires_grad=True))
+        _FAMILY_COUNTS[key] = dict(
+            parameters=sum(p.numel() for p in model.parameters()),
+            forward_flop=forward.get_total_flops(), saved_bytes=saved[0])
+    return _FAMILY_COUNTS[key]
+
+
+def phase_ssnd2net(profile):
+    """The two names at the 2d plan (256x224, batch 12, phase 5's dataset),
+    on the default glue and SSND2NetP also on the fused glue: serving
+    (phase 4's volume and tile batch, the tile against fp64 by phase 4's
+    limits) and training (TRAIN_STEPS steps and a validation step, each
+    with TFLOP/s from ``family_counts``; peak memory within the card
+    without remat); K1/K2 (K3/K4) launches a forward and a step as the
+    tables say, none of the other glue's. One full-width step of SSND2NetP
+    on the default glue against fp64 by phase 16's rule, and one on the
+    fused glue at stage minis of one level. Returns the launches by path."""
+    import torch
+    launches = {}
+    for name, glue in SSND2NET_PATHS:
+        got = {}
+        launches[f"serving_2d_{glue}_{name}"] = timed(
+            f"serving {glue} {name}", phase_end_to_end, profile, glue,
+            name, result=got, tile_check=SSND2NET_TILE_CHECK[name])
+        torch.cuda.empty_cache()
+        trainer, launches[f"training_2d_{glue}_{name}"], _ = timed(
+            f"training {glue} {name}", phase_training, profile, glue, name)
+        peak = torch.cuda.max_memory_allocated()
+        c = family_counts(trainer.model, name)
+        emit("ssnd2net_serving", trainer=name, glue=glue, dim=2,
+             parameters=c["parameters"], seconds_per_volume=got["seconds"],
+             forwards=got["forwards"],
+             tile_tflop=TILE_BATCH * c["forward_flop"] / 1e12,
+             tflop_per_s=TILE_BATCH * c["forward_flop"] * got["forwards"]
+             / got["seconds"] / 1e12,
+             peak_memory_bytes=got["peak_memory_bytes"])
+        if peak > CARD_BYTES or trainer.model.remat:
+            raise AssertionError(f"{name}: the training run peaked at "
+                                 f"{peak} bytes")
+        if name == SSND2NET_P and glue == "default":
+            timed(f"step_agreement {name}", phase_full_step_agreement,
+                  trainer)
+        elif name == SSND2NET_P:
+            with shallow_minis("ssnd2net", (1, 1, 1, 1)):
+                timed(f"step_agreement fused {name}",
+                      phase_full_step_agreement, trainer, glue=glue,
+                      depth="stage_minis_1_1_1_1")
+        del trainer
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ssnd2net_3d():
+    """The two names at zoo_sweep's 3d plan (48x192x192, batch 2, phase
+    20-21's dataset): serving one tile of the plan (``ONE_TILE_3D``, mirror
+    TTA over 3 axes) on the default glue and SSND2NetP on the fused glue
+    too, SSND2NetP's tile on the default glue (K1 at K=6) held against fp64
+    by the ratio rule (the plain scans in 2048-step chunks); training
+    (TRAIN_STEPS steps and a validation step) of SSND2NetP on the fused glue
+    with remat, the one 3d training of the family that fits the card (the
+    default glue's steps, with remat or without, do not: ROADMAP), its peak
+    memory within the card. Returns the launches by path."""
+    import torch
+    launches = {}
+    for name, glue in SSND2NET_PATHS:
+        launches[f"serving_3d_{glue}_{name}"] = timed(
+            f"serving_3d {glue} {name}", phase_cnn_serving, name, 3, glue,
+            ONE_TILE_3D,
+            tile_check="ratio" if (name, glue) == (SSND2NET_P, "default")
+            else None)
+        torch.cuda.empty_cache()
+    trainer, launches[f"training_3d_fused_{SSND2NET_P}"], _ = timed(
+        f"training_3d fused {SSND2NET_P}", phase_cnn_training, SSND2NET_P, 3,
+        "fused", remat=True)
+    peak = torch.cuda.max_memory_allocated()
+    emit("ssnd2net_3d_peak", trainer=SSND2NET_P, glue="fused", remat=True,
+         peak_bytes=peak, card_bytes=CARD_BYTES)
+    if peak > CARD_BYTES:
+        raise AssertionError(f"{SSND2NET_P} 3d training peaked at {peak} bytes")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ssnd2net_tables(cross):
+    """The SSND2Net family's tables for ``family_entry``: each name at 2d
+    (the training batch) and 3d (MAMBA_3D_BATCH), K1/K2's calls of each
+    (L, K*Dh, K), or (``cross``) SSND2NetP's fused calls of each (L, G, Dh,
+    R) in each orientation."""
+    return {f"{trainer}_{dim}d": (batch, calls)
+            for dim, batch in ((2, TRAIN_BATCH), (3, MAMBA_3D_BATCH))
+            for trainer, calls in (
+                {SSND2NET_P: {k + (rev,): n for k, n in SSND2NET_CROSS[dim].items()
+                              for rev in (False, True)}} if cross
+                else SSND2NET_SCANS[dim]).items()}
+
+
+SSND2NET_PER = ("one training step of each model: its calls at each shape at "
+                "B=12 (2d) or B=2 (3d) times the row's ms (K3/K4: the calls of "
+                "each orientation)")
+
+
+def cross_key(r):
+    return r["L"], r["G"], r["Dh"], r["R"], r["reverse"]
 
 
 def main():
@@ -3533,6 +3993,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     import nnuzoo_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     from nnuzoo_tpu_torch import _build
+    from nnuzoo_tpu_torch.models.ss2d import GLUES
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     profile = "--profile" in sys.argv[1:]
@@ -3565,6 +4026,12 @@ def main():
         "lm2net_scan_kernels", phase_mamba_scan_kernels, seed=3000,
         shapes=lm2net_scan_shapes(), event="lm2net_scan_kernel")
     timed("mamba2_block", phase_mamba2_block)
+    # the SSND2Net family's new K1/K2 shapes (K=6 at 3d), and one SSND on
+    # each glue at 2d and 3d
+    ssnd_fwd_rows, ssnd_bwd_rows = timed(
+        "ssnd2net_scan_kernels", phase_mamba_scan_kernels, seed=4000,
+        shapes=ssnd2net_scan_shapes(), event="ssnd2net_scan_kernel")
+    timed("ssnd_blocks", phase_ssnd_blocks)
     # the Transformer baselines' attention blocks against fp64
     timed("transformer_blocks", phase_transformer_blocks)
     elapsed("kernels and blocks")
@@ -3593,7 +4060,6 @@ def main():
         # fine-tuning trainer from its fold, and a step with remat
         trainer, m2["training"], _ = timed("training M2Net", phase_training,
                                            profile, trainer_name=M2NET)
-        timed("step_agreement M2Net", phase_full_step_agreement, trainer)
         m2["finetune"] = timed("finetune", phase_finetune, trainer)
         m2["remat"] = timed("remat", phase_remat, trainer)
         del trainer
@@ -3615,6 +4081,10 @@ def main():
                                            phase_cross_scan_kernels)
     m2_cross_fwd_rows, m2_cross_bwd_rows = timed(
         "cross_scan_kernels M2Net", phase_cross_scan_kernels, "M2Net", seed=1100)
+    # SSND2NetP's fused shapes: G=3 at 3d, L up to 1,769,472
+    ssnd_cross_fwd_rows, ssnd_cross_bwd_rows = timed(
+        "cross_scan_kernels SSND2NetP", phase_cross_scan_kernels, "SSND2NetP",
+        seed=4100, shapes=ssnd2net_cross_shapes())
     timed("fused_ss2d", phase_fused_ss2d)
     # M2NetP's fused paths at stage layers (1, 1, 1, 1): they repeat the
     # default glue's at full depth, and K3/K4 are held to their plain
@@ -3703,7 +4173,8 @@ def main():
         # LightMUNet and SegMamba at 3d_fullres on the same plan and dataset
         for name in MAMBA_SCANS_3D:
             mamba[f"serving_3d_{name}"] = timed(f"serving_3d {name}",
-                                                 phase_cnn_serving, name, 3)
+                                                 phase_cnn_serving, name, 3,
+                                                 volume_shape=ONE_TILE_3D)
             torch.cuda.empty_cache()
             trainer, mamba[f"training_3d_{name}"], _ = timed(
                 f"training_3d {name}", phase_cnn_training, name, 3)
@@ -3730,15 +4201,40 @@ def main():
             del trainer
             torch.cuda.empty_cache()
         elapsed("Transformer baselines")
+        # the SSND2Net family at 3d on the same plan and dataset
+        ssnd = timed("ssnd2net_3d", phase_ssnd2net_3d)
+        torch.cuda.empty_cache()
+        elapsed("SSND2Net family at 3d")
 
     # the LM2Net family at 2d: serving, training, the mamba1 route and two
     # steps against fp64
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
         os.environ["nnUNet_results"] = os.path.join(tmp, "results")
+        reset_scan_launches()   # phase_lm2net counts K3/K4 from here
         lm2, lm2_cross, route_agreement = phase_lm2net(profile)
     torch.cuda.empty_cache()
     elapsed("LM2Net family")
+
+    # the SSND2Net family at 2d: serving and training on each glue, and a
+    # step of SSND2NetP on each glue against fp64
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["nnUNet_preprocessed"] = os.path.join(tmp, "preprocessed")
+        os.environ["nnUNet_results"] = os.path.join(tmp, "results")
+        ssnd.update(timed("ssnd2net_2d", phase_ssnd2net, profile))
+    torch.cuda.empty_cache()
+    elapsed("SSND2Net family at 2d")
+    # K1/K2 on the default glue's paths, K3/K4 on the fused glue's: the
+    # forward kernel's launches of each serving and training path, the
+    # backward kernel's of each training path
+    ssnd_by = {glue: {k: v for k, v in ssnd.items() if f"_{glue}_" in k}
+               for glue in GLUES}
+    ssnd_fwd = {g: {k: v[0] if isinstance(v, tuple) else v
+                    for k, v in paths.items()} for g, paths in ssnd_by.items()}
+    ssnd_bwd = {g: {k: v[1] for k, v in paths.items() if isinstance(v, tuple)}
+                for g, paths in ssnd_by.items()}
+    ssnd_shared_fwd = fwd_rows + m2_fwd_rows + mamba_fwd_rows + lm2_fwd_rows
+    ssnd_shared_bwd = bwd_rows + m2_bwd_rows + mamba_bwd_rows + lm2_bwd_rows
 
     # one training step's scan work: the per-shape numbers at the training
     # batch weighted by the calls of each shape
@@ -3779,11 +4275,13 @@ def main():
                          mamba_fwd_rows, mamba_bwd_rows, False,
                          {k: v[0] if isinstance(v, tuple) else v
                           for k, v in mamba.items()}),
-                     lm2net=lm2net_entry(
-                         lm2_fwd_rows, lm2_bwd_rows, mamba_fwd_rows,
-                         mamba_bwd_rows, False,
+                     lm2net=family_entry(
+                         LM2NET_TABLES, lm2_fwd_rows, mamba_fwd_rows,
                          {k: v[0] if isinstance(v, tuple) else v
-                          for k, v in lm2.items()})),
+                          for k, v in lm2.items()}, LM2NET_PER),
+                     ssnd2net=family_entry(
+                         ssnd2net_tables(False), ssnd_fwd_rows, ssnd_shared_fwd,
+                         ssnd_fwd["default"], SSND2NET_PER)),
         kernel_entry("selective_scan_bwd",
                      "nnuzoo_tpu_torch/csrc/selective_scan_bwd.cu",
                      "nnuzoo_tpu/ops/selective_scan.py:915", bwd_launches,
@@ -3801,11 +4299,13 @@ def main():
                          mamba_fwd_rows, mamba_bwd_rows, True,
                          {k: v[1] for k, v in mamba.items()
                           if isinstance(v, tuple)}),
-                     lm2net=lm2net_entry(
-                         lm2_fwd_rows, lm2_bwd_rows, mamba_fwd_rows,
-                         mamba_bwd_rows, True,
+                     lm2net=family_entry(
+                         LM2NET_TABLES, lm2_bwd_rows, mamba_bwd_rows,
                          {k: v[1] for k, v in lm2.items()
-                          if isinstance(v, tuple)})),
+                          if isinstance(v, tuple)}, LM2NET_PER),
+                     ssnd2net=family_entry(
+                         ssnd2net_tables(False), ssnd_bwd_rows, ssnd_shared_bwd,
+                         ssnd_bwd["default"], SSND2NET_PER)),
         kernel_entry("cross_scan_fwd",
                      "nnuzoo_tpu_torch/csrc/cross_scan_fwd.cu",
                      "nnuzoo_tpu/ops/cross_scan.py:313", k3_launches,
@@ -3825,7 +4325,11 @@ def main():
                          M2NET_CROSS, lambda r: (r["L"], r["Dh"], r["R"]), m2_per,
                          {"serving_fused": m2["serving_fused"],
                           "training_fused": m2["training_fused"][0],
-                          "remat_fused": m2["remat_fused"]})),
+                          "remat_fused": m2["remat_fused"]}),
+                     ssnd2net=family_entry(
+                         ssnd2net_tables(True), ssnd_cross_fwd_rows,
+                         cross_fwd_rows, ssnd_fwd["fused"], SSND2NET_PER,
+                         key=cross_key)),
         kernel_entry("cross_scan_bwd",
                      "nnuzoo_tpu_torch/csrc/cross_scan_bwd.cu",
                      "nnuzoo_tpu/ops/cross_scan.py:346", k4_launches,
@@ -3836,7 +4340,11 @@ def main():
                      m2net=m2net_entry(
                          cross_bwd_rows, m2_cross_bwd_rows,
                          M2NET_CROSS, lambda r: (r["L"], r["Dh"], r["R"]), m2_per,
-                         {"training_fused": m2["training_fused"][1]})),
+                         {"training_fused": m2["training_fused"][1]}),
+                     ssnd2net=family_entry(
+                         ssnd2net_tables(True), ssnd_cross_bwd_rows,
+                         cross_bwd_rows, ssnd_bwd["fused"], SSND2NET_PER,
+                         key=cross_key)),
     ]
     for entry in kernels:
         # K1-K4 together on each path of the CNN and Transformer baselines:
@@ -3856,6 +4364,19 @@ def main():
         raise AssertionError(f"scan kernels launched on the SSD route: {ssd_paths}")
     if any(cnn.values()):
         raise AssertionError(f"scan kernels launched on the CNN paths: {cnn}")
+    # every SSND2Net path ran and launched its glue's kernels (and, by the
+    # checks of its phase, none of the other glue's): K3/K4 at G=3 on the 3d
+    # fused training
+    ssnd_paths = {f"{kind}_{dim}d_{glue}_{name}" for kind in ("serving", "training")
+                  for dim in (2, 3) for name, glue in SSND2NET_PATHS
+                  if kind == "serving" or dim == 2} | \
+        {f"training_3d_fused_{SSND2NET_P}"}
+    ssnd_counts = [n for v in ssnd.values()
+                   for n in (v if isinstance(v, tuple) else (v,))]
+    if set(ssnd) != ssnd_paths or min(ssnd_counts) <= 0 or \
+            not all(isinstance(ssnd[k], tuple) for k in ssnd if "training" in k):
+        raise AssertionError(f"an SSND2Net path did not run or launched no "
+                             f"kernel of its glue: {ssnd}")
     if any(transformer.values()):
         raise AssertionError(f"scan kernels launched on the Transformer paths: "
                              f"{transformer}")

@@ -12,9 +12,10 @@ the flattened flax tree:
   mirrored against torch's;
 - a dense ``kernel`` (in, out) becomes ``weight`` (out, in);
 - a LayerNorm/GroupNorm ``scale`` becomes ``weight``;
-- everything else passes through: biases, the raw SS2D parameters
-  (``x_proj_weight``, ``dt_projs_weight``, ``dt_projs_bias``, ``A_logs``,
-  ``Ds``), a Mamba scan branch's (``conv1d_weight`` (d_conv, d_inner),
+- everything else passes through: biases, the raw SS2D and SSND
+  parameters (``x_proj_weight`` (K, R+2N, D), ``dt_projs_weight``,
+  ``dt_projs_bias``, ``A_logs`` (K*D, N), ``Ds``, with K = 4 directions, or
+  6 for a 3d SSND), a Mamba scan branch's (``conv1d_weight`` (d_conv, d_inner),
   ``conv1d_bias``, ``dt_proj_weight`` (d_inner, R), ``dt_proj_bias``,
   ``A_log`` (d_inner, N), ``D``), a Mamba2Block's (``conv1d_weight``
   (d_conv, d_inner + 2N), ``conv1d_bias``, ``A_log``, ``dt_bias`` and ``D``
@@ -22,7 +23,10 @@ the flattened flax tree:
   tokens, hidden), a window attention's ``relative_position_bias_table``
   (prod(2w-1), heads), and RMSNorm's ``weight``, whose flax name is
   ``weight``; norms without scale or bias (SegMamba's and
-  LightMUNet's per-channel GroupNorms) have no leaf on either side.
+  LightMUNet's per-channel GroupNorms, the GSCs of SSND2Net's mixers) have
+  no leaf on either side. An SSND's depthwise ``conv`` kernel (3, 3, 3, 1,
+  D) at 3d and its LayerNorms (``out_norm``, a mixer's ``ln{i}``, a mini's
+  ``patch_norm``) follow the rules above.
 
 Any key left over on either side, or any shape that disagrees, raises.
 :func:`adamw_state_from_optax` maps the JAX trainer's optax AdamW moments the

@@ -38,11 +38,13 @@ def _keep_scan_outputs(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def remat_stage(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def remat_stage(stage: nn.Module, x: torch.Tensor,
+                keep_scans: bool = True) -> torch.Tensor:
     """``stage(x)`` under a selective ``torch.utils.checkpoint``: the scan
     forwards' outputs (y and the chunk carries the backward kernels start
     from) are kept, everything else in the stage runs again in the backward
     pass, as the JAX package's remat policy does (``_stage_blocks``).
+    Without ``keep_scans`` nothing is kept and the scans run again too.
     ``checkpoint`` restores only the global random state when it runs the
     stage again, so the states of the DropPath modules' own generators are
     kept here and set for the second run, which then draws the same masks;
@@ -70,6 +72,8 @@ def remat_stage(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
             for g, state in zip(generators, after):
                 g.set_state(state)
 
+    if not keep_scans:
+        return checkpoint(run, x, use_reentrant=False)
     return checkpoint(run, x, use_reentrant=False, context_fn=functools.partial(
         create_selective_checkpoint_contexts, _keep_scan_outputs))
 

@@ -10,9 +10,10 @@ the Mamba baselines ``nnUNetTrainerSwinUMamba``,
 Transformer baselines ``nnUNetTrainerUNETR``,
 ``nnUNetTrainerSwinTransformerUnet`` and ``nnUNetTrainerSwUNETR``, the
 LM2Net family ``nnUNetTrainerLM2Net``, ``nnUNetTrainerLM2NetP``,
-``nnUNetTrainerLightMamba2Net`` and ``nnUNetTrainerLightMamba2NetP``, and
-each of them with a ``_05Percent`` .. ``_75Percent`` suffix, which builds
-the base name's model).
+``nnUNetTrainerLightMamba2Net`` and ``nnUNetTrainerLightMamba2NetP``, the
+N-d cross-scan hybrids ``nnUNetTrainerSSND2Net`` and
+``nnUNetTrainerSSND2NetP``, and each of them with a ``_05Percent`` ..
+``_75Percent`` suffix, which builds the base name's model).
 
     builder(plans_manager, dataset_json, configuration_manager,
             num_input_channels, deep_supervision=True, device="cuda",
@@ -66,7 +67,7 @@ def register_model(trainer_names, builder: Callable) -> None:
 
 def get_model_builder(trainer_name: str) -> Callable:
     from . import (light_munet, lm2net, m2net, seg_mamba,  # noqa: F401
-                   swin_umamba, swt, u2net, unetr)  # (register their names)
+                   ssnd2net, swin_umamba, swt, u2net, unetr)  # (their names)
     if trainer_name in MODEL_BUILDERS:
         return MODEL_BUILDERS[trainer_name]
     # the data-fraction variants (nnUNetTrainer_25Percent ..) build the base model

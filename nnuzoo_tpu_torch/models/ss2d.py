@@ -22,7 +22,7 @@ lane-packed glue (``NNUZOO_SS2D_PACKED``) is not ported yet.
 
 import math
 import os
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -45,53 +45,50 @@ def fused_scan_mode() -> bool:
     return env == "1"
 
 
-class SS2D(nn.Module):
-    """x (B, H, W, d_model) -> same shape.
+class GluedScan(nn.Module):
+    """What SS2D and the N-d SSND share: the cross-scan parameters of K
+    directions over ``d_inner`` channels (``x_proj_weight``,
+    ``dt_projs_weight``, ``dt_projs_bias``, ``A_logs``, ``Ds``), their
+    initialisation, the glue ("default" or "fused", read from
+    ``NNUZOO_SS2D_FUSED`` when built) and the scan backend."""
 
-    ``glue`` is "default" or "fused" (see the module's docstring).
-    ``scan_backend`` is passed to :func:`selective_scan_blkd` or
-    :func:`cross_scan_fused`: None runs the kernel path, "plain" and
-    "plain_pair" the plain PyTorch scan (used to compare the two on the card,
-    see :func:`set_scan_backend`)."""
-
-    def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 3,
-                 expand: int = 2, dt_rank: Optional[int] = None,
-                 dropout: float = 0.0, conv_bias: bool = True,
-                 bias: bool = False):
+    def __init__(self, d_model: int, n_dirs: int, d_state: int = 16,
+                 expand: int = 2, dt_rank: Optional[int] = None):
         super().__init__()
-        if d_conv % 2 == 0:
-            raise ValueError("SS2D takes an odd d_conv (symmetric SAME padding)")
-        self.d_inner = d_inner = int(expand * d_model)
-        self.dt_rank = dt_rank = dt_rank or math.ceil(d_model / 16)
-        self.d_state = N = d_state
-        K = 4
-        self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=bias)
-        self.conv2d = nn.Conv2d(d_inner, d_inner, d_conv, padding=d_conv // 2,
-                                groups=d_inner, bias=conv_bias)
-        self.x_proj_weight = nn.Parameter(torch.empty(K, dt_rank + 2 * N, d_inner))
-        self.dt_projs_weight = nn.Parameter(torch.empty(K, d_inner, dt_rank))
-        self.dt_projs_bias = nn.Parameter(torch.empty(K, d_inner))
-        self.A_logs = nn.Parameter(torch.empty(K * d_inner, N))
-        self.Ds = nn.Parameter(torch.empty(K * d_inner))
-        self.out_norm = nn.LayerNorm(d_inner, eps=1e-6)
-        self.out_proj = nn.Linear(d_inner, d_model, bias=bias)
-        self.dropout = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
+        self.d_inner = int(expand * d_model)
+        self.dt_rank = dt_rank or math.ceil(d_model / 16)
+        self.d_state = d_state
+        self.n_dirs = n_dirs
         self.scan_backend: Optional[str] = None
         self.glue = "default"
+
+    def add_scan_parameters(self) -> None:
+        """Register the K directions' scan parameters (a subclass calls this
+        after its input projections, so that they keep the JAX module's
+        order)."""
+        K, D, R, N = self.n_dirs, self.d_inner, self.dt_rank, self.d_state
+        self.x_proj_weight = nn.Parameter(torch.empty(K, R + 2 * N, D))
+        self.dt_projs_weight = nn.Parameter(torch.empty(K, D, R))
+        self.dt_projs_bias = nn.Parameter(torch.empty(K, D))
+        self.A_logs = nn.Parameter(torch.empty(K * D, N))
+        self.Ds = nn.Parameter(torch.empty(K * D))
+
+    def read_glue(self) -> None:
+        """Take the fused glue where ``NNUZOO_SS2D_FUSED`` asks for it."""
         if fused_scan_mode():
             self.check_fused()
             self.glue = "fused"
 
     def check_fused(self) -> None:
         """Raise ``ValueError`` where the fused glue's kernels (K3/K4) cannot
-        run this SS2D's widths."""
+        run this module's widths."""
         Dh, R = self.d_inner, self.dt_rank
         if Dh % 32 or not 32 <= Dh <= KERNEL_MAX_DH or R > KERNEL_MAX_RANK:
             raise ValueError(
-                f"the fused SS2D glue's kernels (K3/K4) take Dh = d_inner a "
+                f"the fused glue's kernels (K3/K4) take Dh = d_inner a "
                 f"multiple of 32 up to {KERNEL_MAX_DH} and dt rank R up to "
-                f"{KERNEL_MAX_RANK}; this SS2D has Dh={Dh}, R={R}: use the "
-                f"default glue")
+                f"{KERNEL_MAX_RANK}; this {type(self).__name__} has Dh={Dh}, "
+                f"R={R}: use the default glue")
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None,
                          dt_min: float = 0.001, dt_max: float = 0.1,
@@ -111,44 +108,72 @@ class SS2D(nn.Module):
             self.A_logs.copy_(torch.log(a).expand_as(self.A_logs))
             self.Ds.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, H, W, _ = x.shape
-        D, R, N = self.d_inner, self.dt_rank, self.d_state
-        L = H * W
-
-        xpart, z = self.in_proj(x).chunk(2, dim=-1)
-        xc = F.silu(conv_cl(self.conv2d, xpart))            # (B, H, W, D)
-
-        # the 2 traversal orders; directions 2/3 are their reversals
-        x_hw = xc.reshape(B, L, D)
-        x_wh = xc.transpose(1, 2).reshape(B, L, D)
+    def scan_streams(self, streams: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Each of the G = K/2 streams (B, L, d_inner) scanned forwards and
+        backwards, by this module's glue: the sum of the two directions of
+        each stream, in its natural order."""
+        G, D, R, N = len(streams), self.d_inner, self.dt_rank, self.d_state
         A = -torch.exp(self.A_logs)
         if self.glue == "fused":
-            # directions 0/1 forwards, then 2/3 as the same streams walked
-            # from the right; y comes back in natural order
-            streams, D2 = (x_hw, x_wh), 2 * D
+            # directions 0..G-1 forwards, then G..2G-1 as the same streams
+            # walked from the right; y comes back in natural order
+            GD = G * D
             y_f = cross_scan_fused(
-                streams, self.x_proj_weight[:2], self.dt_projs_weight[:2],
-                self.dt_projs_bias[:2], A[:D2], self.Ds[:D2], reverse=False,
+                streams, self.x_proj_weight[:G], self.dt_projs_weight[:G],
+                self.dt_projs_bias[:G], A[:GD], self.Ds[:GD], reverse=False,
                 backend=self.scan_backend)
             y_r = cross_scan_fused(
-                streams, self.x_proj_weight[2:], self.dt_projs_weight[2:],
-                self.dt_projs_bias[2:], A[D2:], self.Ds[D2:], reverse=True,
+                streams, self.x_proj_weight[G:], self.dt_projs_weight[G:],
+                self.dt_projs_bias[G:], A[GD:], self.Ds[GD:], reverse=True,
                 backend=self.scan_backend)
-            ys = y_f + y_r                                  # (B, L, [hw | wh])
-            y_hw, y_wh = ys[..., :D], ys[..., D:]
-        else:
-            xs = torch.stack([x_hw, x_wh, x_hw.flip(1), x_wh.flip(1)], dim=2)
-            x_dbl = torch.einsum("blkd,kcd->blkc", xs, self.x_proj_weight)
-            dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
-            dts = torch.einsum("blkr,kdr->blkd", dts, self.dt_projs_weight)
-            out_y = selective_scan_blkd(
-                xs, dts, A, Bs, Cs, D=self.Ds,
-                delta_bias=self.dt_projs_bias.reshape(-1), delta_softplus=True,
-                backend=self.scan_backend)                  # (B, L, K, D)
-            y_hw = out_y[:, :, 0] + out_y[:, :, 2].flip(1)
-            y_wh = out_y[:, :, 1] + out_y[:, :, 3].flip(1)
+            ys = y_f + y_r                                  # (B, L, G*D)
+            return [ys[..., g * D:(g + 1) * D] for g in range(G)]
+        fwd = torch.stack(list(streams), dim=2)             # (B, L, G, D)
+        xs = torch.cat([fwd, fwd.flip(1)], dim=2)           # (B, L, K, D)
+        x_dbl = torch.einsum("blkd,kcd->blkc", xs, self.x_proj_weight)
+        dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
+        dts = torch.einsum("blkr,kdr->blkd", dts, self.dt_projs_weight)
+        out_y = selective_scan_blkd(
+            xs, dts, A, Bs, Cs, D=self.Ds,
+            delta_bias=self.dt_projs_bias.reshape(-1), delta_softplus=True,
+            backend=self.scan_backend)                      # (B, L, K, D)
+        return [out_y[:, :, g] + out_y[:, :, g + G].flip(1) for g in range(G)]
 
+
+class SS2D(GluedScan):
+    """x (B, H, W, d_model) -> same shape.
+
+    ``glue`` is "default" or "fused" (see the module's docstring).
+    ``scan_backend`` is passed to :func:`selective_scan_blkd` or
+    :func:`cross_scan_fused`: None runs the kernel path, "plain" and
+    "plain_pair" the plain PyTorch scan (used to compare the two on the card,
+    see :func:`set_scan_backend`)."""
+
+    def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 3,
+                 expand: int = 2, dt_rank: Optional[int] = None,
+                 dropout: float = 0.0, conv_bias: bool = True,
+                 bias: bool = False):
+        super().__init__(d_model, 4, d_state, expand, dt_rank)
+        if d_conv % 2 == 0:
+            raise ValueError("SS2D takes an odd d_conv (symmetric SAME padding)")
+        d_inner = self.d_inner
+        self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=bias)
+        self.conv2d = nn.Conv2d(d_inner, d_inner, d_conv, padding=d_conv // 2,
+                                groups=d_inner, bias=conv_bias)
+        self.add_scan_parameters()
+        self.out_norm = nn.LayerNorm(d_inner, eps=1e-6)
+        self.out_proj = nn.Linear(d_inner, d_model, bias=bias)
+        self.dropout = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
+        self.read_glue()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, _ = x.shape
+        D = self.d_inner
+        xpart, z = self.in_proj(x).chunk(2, dim=-1)
+        xc = F.silu(conv_cl(self.conv2d, xpart))            # (B, H, W, D)
+        # the 2 traversal orders; directions 2/3 are their reversals
+        y_hw, y_wh = self.scan_streams(
+            (xc.reshape(B, H * W, D), xc.transpose(1, 2).reshape(B, H * W, D)))
         # merge the directions back into row-major order
         y = y_hw.reshape(B, H, W, D) + y_wh.reshape(B, W, H, D).transpose(1, 2)
         y = self.out_norm(y) * F.silu(z)
@@ -198,12 +223,12 @@ def set_scan_backend(model: nn.Module, backend: Optional[str]) -> None:
 
 
 def set_ss2d_glue(model: nn.Module, glue: str) -> None:
-    """Set the glue of every SS2D in ``model``: "default" or "fused". The
-    fused glue raises ``ValueError``, and changes nothing, where an SS2D is
-    wider than its kernels take (:meth:`SS2D.check_fused`)."""
+    """Set the glue of every SS2D and SSND in ``model``: "default" or
+    "fused". The fused glue raises ``ValueError``, and changes nothing,
+    where one is wider than its kernels take (:meth:`GluedScan.check_fused`)."""
     if glue not in GLUES:
         raise ValueError(f"glue must be one of {GLUES}, got {glue!r}")
-    blocks = [m for m in model.modules() if isinstance(m, SS2D)]
+    blocks = [m for m in model.modules() if isinstance(m, GluedScan)]
     if glue == "fused":
         for module in blocks:
             module.check_fused()

@@ -37,7 +37,8 @@ for wanted in ("training.trainer", "training.losses", "training.schedulers",
                "models.dynamic_unet", "models.u2net", "models.registry",
                "models.mamba", "models.unetr", "models.light_munet",
                "models.seg_mamba", "models.swin_umamba", "models.attention",
-               "models.swt", "models.x2net", "ops.ssd", "models.lm2net"):
+               "models.swt", "models.x2net", "ops.ssd", "models.lm2net",
+               "models.ssnd", "models.mixers", "models.ssnd2net"):
     assert "nnuzoo_tpu_torch." + wanted in names, wanted
 """
 

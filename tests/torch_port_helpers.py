@@ -9,6 +9,7 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from nnuzoo_tpu_torch.convert import convert_params
@@ -66,6 +67,18 @@ def random_flax_params(module, *inputs, seed=0, **kwargs):
         return _leaf_value(rng, keys, leaf.shape).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one thread for a module's tests, as it was before after them:
+    the test run shares the cores among its workers, and torch's intra-op
+    threads, which meet at every operation, run tens of times slower when
+    the workers' threads together outnumber the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def load_converted(torch_module, flax_params):
